@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Where one halo2_tpu_torch proof spends its time on the card.
+
+    python3 examples/torch_profile_prove.py [--k K]
+
+Sets up and keys the row-filling MulChainCircuit at 2^K rows, proves once
+to warm up, then proves again under torch.profiler (CPU + CUDA activities)
+and prints one JSON object: the proof's wall seconds, the summed device
+time of all kernels, the device's busy share of the wall time, and the ten
+kernels with the most device time.  Needs one CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from halo2_tpu_torch.circuits import MulChainCircuit  # noqa: E402
+from halo2_tpu_torch.plonk.keygen import keygen  # noqa: E402
+from halo2_tpu_torch.plonk.prover import create_proof  # noqa: E402
+from halo2_tpu_torch.poly.commitment import Params  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile_prove: no CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    circuit = MulChainCircuit(MulChainCircuit.steps_for(args.k), a=3, b=5)
+    out = circuit.expected_out()
+    params = Params.unsafe_setup(args.k, seed=7, device=device)
+    _, pk = keygen(params, circuit, device=device)
+    create_proof(params, pk, circuit, [[out]], seed=1, device=device)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        create_proof(params, pk, circuit, [[out]], seed=2, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    # device-side events only: an operator's entry repeats the device time
+    # of the kernels it launched
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_s = sum(r[1] for r in rows) / 1e6
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(json.dumps({
+        "card": smi.stdout.strip().splitlines()[0], "k": args.k,
+        "create_proof_wall_s": round(wall, 4),
+        "device_time_s": round(device_s, 4),
+        "device_busy_share": round(device_s / wall, 4),
+        "top_kernels": [{"name": n[:80], "device_ms": round(t / 1e3, 3),
+                         "calls": c} for n, t, c in rows[:10]]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,219 @@
+// BN254 Fr / Fq arithmetic for one element per thread, Montgomery form
+// with R = 2^256.
+//
+// Storage (shared with the Python side, fields/limbs.py): a field element
+// is 16 limbs of 16 bits, one limb per 32-bit word, limbs-leading: limb j
+// of element i sits at word j*limb_stride + i.  Neighbouring threads read
+// neighbouring words, so every access is coalesced.  In registers the 16
+// limbs are gathered into 8 words of 32 bits and the arithmetic runs on
+// carry chains (add.cc / addc / mad.lo.cc / madc.hi.cc).
+//
+// These device functions are the arithmetic of the reference's
+// fields/ssa.py (add_mod, sub_mod, neg_mod, mont_mul, mont_sqr), written
+// for a register machine instead of full-tile vector values.
+#pragma once
+
+#include <cstdint>
+
+namespace h2 {
+
+constexpr int NL = 16;  // 16-bit limbs of an element in memory
+constexpr int NW = 8;   // 32-bit words of an element in registers
+
+constexpr int FR = 0;   // scalar field
+constexpr int FQ = 1;   // base field
+
+// little-endian 32-bit words of the two moduli
+static __constant__ uint32_t MODULUS[2][NW] = {
+    {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
+     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u}};
+// -p^{-1} mod 2^32
+static __constant__ uint32_t MONT_INV[2] = {0xefffffffu, 0xe4866389u};
+
+struct Fe {
+  uint32_t w[NW];
+};
+
+__device__ __forceinline__ Fe load_fe(const uint32_t* p, int64_t limb_stride,
+                                      int64_t idx) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    uint32_t lo = p[(int64_t)(2 * k) * limb_stride + idx];
+    uint32_t hi = p[(int64_t)(2 * k + 1) * limb_stride + idx];
+    r.w[k] = (lo & 0xFFFFu) | (hi << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void store_fe(uint32_t* p, int64_t limb_stride,
+                                         int64_t idx, const Fe& v) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    p[(int64_t)(2 * k) * limb_stride + idx] = v.w[k] & 0xFFFFu;
+    p[(int64_t)(2 * k + 1) * limb_stride + idx] = v.w[k] >> 16;
+  }
+}
+
+template <int F>
+__device__ __forceinline__ Fe modulus() {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = MODULUS[F][k];
+  return r;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const Fe& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) acc |= a.w[k];
+  return acc == 0;
+}
+
+__device__ __forceinline__ Fe fe_zero() {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = 0;
+  return r;
+}
+
+// r = a + b over 256 bits; returns the carry out (0 or 1)
+__device__ __forceinline__ uint32_t add8(Fe& r, const Fe& a, const Fe& b) {
+  uint32_t carry;
+  asm("add.cc.u32   %0, %9,  %17;\n\t"
+      "addc.cc.u32  %1, %10, %18;\n\t"
+      "addc.cc.u32  %2, %11, %19;\n\t"
+      "addc.cc.u32  %3, %12, %20;\n\t"
+      "addc.cc.u32  %4, %13, %21;\n\t"
+      "addc.cc.u32  %5, %14, %22;\n\t"
+      "addc.cc.u32  %6, %15, %23;\n\t"
+      "addc.cc.u32  %7, %16, %24;\n\t"
+      "addc.u32     %8, 0, 0;\n\t"
+      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]),
+        "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7]), "=r"(carry)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]),
+        "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]),
+        "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]),
+        "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]));
+  return carry;
+}
+
+// r = a - b over 256 bits; returns the borrow out (0 or 1)
+__device__ __forceinline__ uint32_t sub8(Fe& r, const Fe& a, const Fe& b) {
+  uint32_t borrow;
+  asm("sub.cc.u32   %0, %9,  %17;\n\t"
+      "subc.cc.u32  %1, %10, %18;\n\t"
+      "subc.cc.u32  %2, %11, %19;\n\t"
+      "subc.cc.u32  %3, %12, %20;\n\t"
+      "subc.cc.u32  %4, %13, %21;\n\t"
+      "subc.cc.u32  %5, %14, %22;\n\t"
+      "subc.cc.u32  %6, %15, %23;\n\t"
+      "subc.cc.u32  %7, %16, %24;\n\t"
+      "subc.u32     %8, 0, 0;\n\t"
+      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]),
+        "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7]), "=r"(borrow)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]),
+        "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]),
+        "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]),
+        "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]));
+  // subc.u32 of 0 - 0 - borrow is 0 or 0xFFFFFFFF
+  return borrow & 1u;
+}
+
+// x in [0, 2p) -> x mod p
+template <int F>
+__device__ __forceinline__ Fe cond_sub_p(const Fe& x) {
+  Fe d;
+  uint32_t borrow = sub8(d, x, modulus<F>());
+  return borrow ? x : d;
+}
+
+template <int F>
+__device__ __forceinline__ Fe add_mod(const Fe& a, const Fe& b) {
+  Fe s;
+  add8(s, a, b);  // a + b < 2p < 2^255: no carry out
+  return cond_sub_p<F>(s);
+}
+
+template <int F>
+__device__ __forceinline__ Fe sub_mod(const Fe& a, const Fe& b) {
+  Fe d;
+  uint32_t borrow = sub8(d, a, b);
+  if (borrow) {
+    Fe e;
+    add8(e, d, modulus<F>());
+    return e;
+  }
+  return d;
+}
+
+template <int F>
+__device__ __forceinline__ Fe neg_mod(const Fe& a) {
+  if (fe_is_zero(a)) return a;
+  Fe d;
+  sub8(d, modulus<F>(), a);
+  return d;
+}
+
+// t[0..9] += x * y, x of 8 words, y one word.  Two carry chains: the low
+// halves of the 8 products, then the high halves one word up.
+__device__ __forceinline__ void mad_row(uint32_t (&t)[NW + 2], const Fe& x,
+                                        uint32_t y) {
+  asm("mad.lo.cc.u32   %0, %10, %18, %0;\n\t"
+      "madc.lo.cc.u32  %1, %11, %18, %1;\n\t"
+      "madc.lo.cc.u32  %2, %12, %18, %2;\n\t"
+      "madc.lo.cc.u32  %3, %13, %18, %3;\n\t"
+      "madc.lo.cc.u32  %4, %14, %18, %4;\n\t"
+      "madc.lo.cc.u32  %5, %15, %18, %5;\n\t"
+      "madc.lo.cc.u32  %6, %16, %18, %6;\n\t"
+      "madc.lo.cc.u32  %7, %17, %18, %7;\n\t"
+      "addc.cc.u32     %8, %8, 0;\n\t"
+      "addc.u32        %9, %9, 0;\n\t"
+      "mad.hi.cc.u32   %1, %10, %18, %1;\n\t"
+      "madc.hi.cc.u32  %2, %11, %18, %2;\n\t"
+      "madc.hi.cc.u32  %3, %12, %18, %3;\n\t"
+      "madc.hi.cc.u32  %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32  %5, %14, %18, %5;\n\t"
+      "madc.hi.cc.u32  %6, %15, %18, %6;\n\t"
+      "madc.hi.cc.u32  %7, %16, %18, %7;\n\t"
+      "madc.hi.cc.u32  %8, %17, %18, %8;\n\t"
+      "addc.u32        %9, %9, 0;\n\t"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(x.w[0]), "r"(x.w[1]), "r"(x.w[2]), "r"(x.w[3]),
+        "r"(x.w[4]), "r"(x.w[5]), "r"(x.w[6]), "r"(x.w[7]), "r"(y));
+}
+
+// Montgomery product a*b/R mod p (CIOS: one row of a*b_i, one row of m*p,
+// one word shift, eight times; everything stays in registers)
+template <int F>
+__device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int k = 0; k < NW + 2; ++k) t[k] = 0;
+  const Fe p = modulus<F>();
+  const uint32_t inv = MONT_INV[F];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    mad_row(t, a, b.w[i]);
+    uint32_t m = t[0] * inv;
+    mad_row(t, p, m);  // makes t[0] zero
+#pragma unroll
+    for (int k = 0; k < NW + 1; ++k) t[k] = t[k + 1];
+    t[NW + 1] = 0;
+  }
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = t[k];
+  // inputs < p give a result < 2p < 2^255, so t[8] is zero here
+  return cond_sub_p<F>(r);
+}
+
+template <int F>
+__device__ __forceinline__ Fe mont_sqr(const Fe& a) {
+  return mont_mul<F>(a, a);
+}
+
+}  // namespace h2

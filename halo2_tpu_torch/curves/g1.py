@@ -1,0 +1,139 @@
+"""BN254 G1 point arithmetic on limb tensors.
+
+Points are *structures of limb arrays*: an affine point is ``(x, y)`` and
+a projective point ``(X, Y, Z)``, each coordinate a ``(16, *batch)`` int32
+Montgomery-form Fq limb tensor (see fields/limbs.py).  All group ops are
+branch-free **complete formulas** (Renes-Costello-Batina 2015, homogeneous
+projective, a = 0), so they run over the batch axis with no data-dependent
+control flow: one thread per point in the kernels of curves/cuda_point.py,
+which `add`, `add_mixed` and `double` go through.
+
+Identity (group zero) in homogeneous projective coordinates is (0 : 1 : 0).
+The device is that of the operands; constructors take it explicitly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from halo2_tpu_torch.curves import cuda_point
+from halo2_tpu_torch.fields.bn254 import fq
+from halo2_tpu_torch.fields.limbs import N_LIMBS, is_zero, to_numpy, to_tensor
+
+
+def identity(batch_shape, device):
+    """(0 : 1 : 0) at batch_shape."""
+    F = fq(device)
+    zero = F.zeros(batch_shape)
+    return (zero, F.ones(batch_shape), zero.clone())
+
+
+def generator(device):
+    """The canonical generator (1, 2) as Montgomery affine limbs."""
+    F = fq(device)
+    return (F.encode_scalar(1), F.encode_scalar(2))
+
+
+def from_affine(p_aff):
+    """(x, y) affine -> (X, Y, Z) projective with Z = 1."""
+    x, y = p_aff
+    return (x, y, fq(x.device).ones(x.shape[1:]))
+
+
+def neg(p):
+    """Negate a projective (or affine, 2-tuple) point."""
+    F = fq(p[0].device)
+    if len(p) == 2:
+        x, y = p
+        return (x, F.neg(y))
+    x, y, z = p
+    return (x, F.neg(y), z)
+
+
+def add(p, q):
+    """Complete projective addition (RCB15 Algorithm 7, a=0, b3=9):
+    identity, doubling and inverse inputs are handled uniformly."""
+    return cuda_point.point_op("add", list(p) + list(q))
+
+
+def add_mixed(p, q_aff):
+    """Complete mixed addition (RCB15 Algorithm 8): projective p + affine
+    q.  Complete except when q is the group identity — affine inputs here
+    (SRS points, bucket feeds) never are."""
+    return cuda_point.point_op("add_mixed", list(p) + list(q_aff))
+
+
+def double(p):
+    """Complete doubling (RCB15 Algorithm 9, a=0, b3=9)."""
+    return cuda_point.point_op("double", list(p))
+
+
+def select(mask, p, q):
+    """Elementwise point select: mask ? p : q.
+
+    mask: bool (*batch); p, q: same-arity point tuples broadcastable to it."""
+    m = mask[None]
+    return tuple(torch.where(m, a, b) for a, b in zip(p, q))
+
+
+def is_identity(p):
+    """(*batch,) bool: Z == 0 (projective) or (x, y) == (0, 0) (affine tag)."""
+    if len(p) == 3:
+        return is_zero(p[2])
+    return is_zero(p[0]) & is_zero(p[1])
+
+
+def to_affine(p):
+    """Projective -> affine via batch inversion of Z.
+
+    Identity points map to the affine tag (0, 0) (the reference's
+    `CurveAffine::identity()` encoding of x = y = 0)."""
+    x, y, z = p
+    F = fq(z.device)
+    shape = z.shape
+    zinv = F.batch_inverse(z.reshape(N_LIMBS, -1)).reshape(shape)
+    ax = F.mul(x, zinv)
+    ay = F.mul(y, zinv)
+    zero_mask = is_zero(z)[None]
+    return (torch.where(zero_mask, 0, ax), torch.where(zero_mask, 0, ay))
+
+
+def scalar_mul(p_aff, scalars_std):
+    """Batched scalar multiplication: k_i * P_i for affine points.
+
+    scalars_std: (16, *batch) limbs in STANDARD form (not Montgomery) — the
+    bit pattern is the actual scalar.  Double-and-add over all 256 bits,
+    least significant first.  Used for SRS setup; MSM uses the Pippenger
+    path in halo2_tpu_torch.msm instead."""
+    x, y = p_aff
+    acc = identity(x.shape[1:], x.device)
+    base = from_affine((x.contiguous(), y.contiguous()))
+    for j in range(256):
+        bit = (scalars_std[j // 16] >> (j % 16)) & 1
+        acc = select(bit == 1, add(acc, base), acc)
+        if j < 255:
+            base = double(base)
+    return acc
+
+
+# -- host <-> device conversion helpers -------------------------------------
+
+def encode_points(points, device):
+    """List of host affine points (int x, int y) or None -> (2, 16, N)
+    Montgomery limbs on the device; identity encoded as (0, 0)."""
+    F = fq(device)
+    xs = [0 if p is None else p[0] for p in points]
+    ys = [0 if p is None else p[1] for p in points]
+    return to_tensor(np.stack([F.encode_np(xs), F.encode_np(ys)]), device)
+
+
+def decode_points(xy):
+    """(2, 16, N) Montgomery affine limbs -> list of host points."""
+    if isinstance(xy, (tuple, list)):
+        xy = torch.stack(list(xy))
+    F = fq(xy.device)
+    arr = to_numpy(xy)
+    xs = F.decode(arr[0])
+    ys = F.decode(arr[1])
+    return [None if x == 0 and y == 0 else (x, y) for x, y in zip(xs, ys)]

@@ -1,0 +1,359 @@
+"""CUDA kernels for the hot field ops, with a plain PyTorch version of
+each beside its wrapper.
+
+Three kernels (csrc/field_kernels.cu over csrc/field.cuh), each taking the
+place of one Pallas TPU kernel of halo2_tpu/fields/pallas_ops.py:
+
+  binop      replaces `_binop_call`     — elementwise add / sub / Montgomery
+             mul mod p, for Fr and Fq
+  butterfly  replaces `_butterfly_call` — radix-2 DIF butterfly
+             u = lo + hi, v = (lo - hi) * tw, the twiddle row indexed, never
+             broadcast
+  mul_tiled  replaces `_mul_tiled_call` — a * t with a table shared by every
+             row, indexed j % k
+
+What bounds them on an H100: a Montgomery product is 136 32-bit
+multiply-adds on 128 bytes read and 64 written.  Against 3.35 TB/s and some
+33 T integer operations a second that is 57 ps of memory traffic and 8 ps
+of arithmetic an element, so all three are bound by device memory: storage
+keeps one 16-bit limb per 32-bit word (twice the bytes a packed layout
+would move) so that state is shared with the rest of the package as it is.
+The design keeps one element per thread in eight 32-bit registers, the
+whole CIOS product on carry chains (no intermediate ever leaves the
+registers), the modulus in constant memory, and reads every operand once.
+
+A wrapper launches its kernel for a CUDA tensor and uses the plain version
+only for a tensor on the CPU.  `launch_counts` counts launches.
+
+Arrays are `torch.int32`, limbs-leading `(16, *batch)`, one 16-bit limb a
+word (see fields/limbs.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from halo2_tpu_torch.utils import build
+
+LIMB_BITS = 16
+N_LIMBS = 16
+MASK = (1 << LIMB_BITS) - 1
+
+launch_counts = {"binop": 0, "butterfly": 0, "mul_tiled": 0}
+
+_OPS = {"add": 0, "sub": 1, "mul": 2}
+_FIELD_IDS = {"Fr": 0, "Fq": 1}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: exact int64 arithmetic on the 16-bit limbs
+# ---------------------------------------------------------------------------
+
+def _limb_list(x: int, n: int) -> list:
+    return [(x >> (LIMB_BITS * i)) & MASK for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(p: int, p_inv_neg: int, device: str) -> dict:
+    """Constant tensors of the plain versions for one modulus and device.
+
+    The two products by a constant (m = T * -p^-1 mod 2^256 and m * p) are
+    matrix products with the constant's Toeplitz matrix.  They run in
+    float64, which is exact here: the entries are below 2^21 and 2^16, so
+    a sum of 16 products stays below 2^41."""
+    i64 = dict(dtype=torch.int64, device=device)
+    p_l = _limb_list(p, N_LIMBS)
+    pinv_l = _limb_list(p_inv_neg, N_LIMBS)
+    p_t = torch.zeros((2 * N_LIMBS, N_LIMBS), dtype=torch.float64)
+    pinv_t = torch.zeros((N_LIMBS, N_LIMBS), dtype=torch.float64)
+    for j in range(N_LIMBS):
+        for i in range(N_LIMBS):
+            p_t[i + j, j] = p_l[i]
+            if i + j < N_LIMBS:
+                pinv_t[i + j, j] = pinv_l[i]
+    return {
+        "shifts": torch.arange(2 * N_LIMBS + 1, **i64)[:, None],
+        # p and 2^256 - p as 17-limb columns
+        "p17": torch.tensor(p_l + [0], **i64)[:, None],
+        "negp17": torch.tensor(_limb_list((1 << 256) - p, N_LIMBS) + [0],
+                               **i64)[:, None],
+        # 2^256 - p placed 16 limbs up, as a 33-limb column
+        "negp33": torch.tensor(
+            [0] * N_LIMBS + _limb_list((1 << 256) - p, N_LIMBS) + [0],
+            **i64)[:, None],
+        "p_toeplitz": p_t.to(device),
+        "pinv_toeplitz": pinv_t.to(device),
+    }
+
+
+def _resolve(acc: torch.Tensor, passes: int, shifts: torch.Tensor):
+    """Exact carry normalisation of redundant limbs, modulo 2^(16*width).
+
+    acc: (width, N) int64, every limb in [0, 2^62); it is overwritten.
+    Returns (width, N) canonical 16-bit limbs of
+    (sum acc_k 2^(16k)) mod 2^(16*width).
+
+    `passes` relaxation passes fold multi-bit carries one limb up (the
+    caller states how many its bound needs: before the last pass every
+    limb is below 2^32, so after it at most 2^17 - 2; with no pass the
+    input already is).  Then the remaining 0/1 carries ripple in one
+    integer addition per element: with g the limbs that generate a carry
+    and p those that propagate one, the carry into every limb is read off
+    the bits of ((g|p) + g) ^ (g|p) ^ g.
+    """
+    width = acc.shape[0]
+    shifts = shifts[:width]
+    for _ in range(passes):
+        hi = acc >> LIMB_BITS
+        acc &= MASK
+        acc[1:] += hi[:-1]
+    lo = acc & MASK
+    g = ((acc >> LIMB_BITS) << shifts).sum(0)
+    x = g | ((lo == MASK) << shifts).sum(0)
+    carry_in = ((x + g) ^ x ^ g) >> shifts         # bit 0: carry into limb
+    return (lo + (carry_in & 1)) & MASK
+
+
+def _side_by_side(x: torch.Tensor, extra: torch.Tensor, width: int):
+    """(width, 2N) int64: x in the left half, x + extra in the right half,
+    both zero-extended to `width` limbs (extra is a (width, 1) column)."""
+    rows, n = x.shape
+    both = x.new_zeros((width, 2 * n))
+    both[:rows, :n] = x
+    both[:rows, n:] = x
+    both[:, n:] += extra
+    return both
+
+
+def _mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(16, N) x (16, N) -> (32, N) redundant limbs of the full product,
+    every limb below 2^36.  The 16 x 16 partial products are laid out
+    skewed (row i shifted i limbs up) by padding each row to 33 and
+    re-reading the buffer 32 wide, then summed over rows."""
+    n = a.shape[1]
+    prod = a.new_zeros((N_LIMBS, 2 * N_LIMBS + 1, n))
+    torch.mul(a[:, None, :], b[None, :, :], out=prod[:, :N_LIMBS, :])
+    skew = prod.reshape(N_LIMBS * (2 * N_LIMBS + 1), n)[:2 * N_LIMBS * N_LIMBS]
+    return skew.reshape(N_LIMBS, 2 * N_LIMBS, n).sum(0)
+
+
+def plain_binop(op: str, field, a: torch.Tensor, b: torch.Tensor):
+    """add / sub / Montgomery mul mod field.p on (16, N) int32 limb arrays.
+
+    Every op ends in a choice between x and x -/+ p.  Both candidates are
+    carried side by side through one carry normalisation, and the carry
+    out of the 256 bits says which one is in range."""
+    n = a.shape[1]
+    c = _constants(field.p, field.p_inv_neg, str(a.device))
+    a64 = a.to(torch.int64)
+    b64 = b.to(torch.int64)
+    if op == "add":
+        # s = a + b and s + (2^256 - p): the latter overflows iff s >= p
+        both = _resolve(_side_by_side(a64 + b64, c["negp17"], N_LIMBS + 1),
+                        1, c["shifts"])
+        out = torch.where(both[N_LIMBS:, n:] == 1, both[:N_LIMBS, n:],
+                          both[:N_LIMBS, :n])
+    elif op == "sub":
+        # d = a + ~b + 1 = a - b + 2^256 and d + p: d overflows iff a >= b
+        d = a64 + (MASK - b64)
+        d[0] += 1
+        both = _resolve(_side_by_side(d, c["p17"], N_LIMBS + 1), 1,
+                        c["shifts"])
+        out = torch.where(both[N_LIMBS:, :n] == 1, both[:N_LIMBS, :n],
+                          both[:N_LIMBS, n:])
+    elif op == "mul":
+        t = _mul_wide(a64, b64)                              # T = a * b
+        t_lo = t[:N_LIMBS]
+        t_lo = (t_lo & MASK).to(torch.float64)
+        t_hi1 = (t[:N_LIMBS - 1] >> LIMB_BITS).to(torch.float64)
+        t_lo[1:] += t_hi1                  # T mod 2^256, limbs below 2^21
+        m = (c["pinv_toeplitz"] @ t_lo).to(torch.int64)      # T * -p^-1
+        m = _resolve(m, 2, c["shifts"])                      # mod 2^256
+        mp = (c["p_toeplitz"] @ m.to(torch.float64)).to(torch.int64)
+        # (T + m p) / R and the same minus p, carried through together
+        both = _resolve(_side_by_side(t + mp, c["negp33"], 2 * N_LIMBS + 1),
+                        2, c["shifts"])
+        out = torch.where(both[2 * N_LIMBS:, n:] == 1,
+                          both[N_LIMBS:2 * N_LIMBS, n:],
+                          both[N_LIMBS:2 * N_LIMBS, :n])
+    else:
+        raise ValueError(f"unknown field op {op!r}")
+    return out.to(torch.int32)
+
+
+def plain_butterfly(field, lo, hi, tw, rep: int = 1):
+    """lo, hi: (16, mid, half); tw: (16, half // rep), each twiddle serving
+    `rep` neighbouring columns.  Returns (16, mid, 2, half): [u, v]."""
+    mid, half = lo.shape[1], lo.shape[2]
+    twf = tw.repeat_interleave(rep, dim=1) if rep > 1 else tw
+    lo2 = lo.reshape(N_LIMBS, mid * half)
+    hi2 = hi.reshape(N_LIMBS, mid * half)
+    twf = twf[:, None, :].expand(N_LIMBS, mid, half).reshape(
+        N_LIMBS, mid * half)
+    u = plain_binop("add", field, lo2, hi2)
+    v = plain_binop("mul", field, plain_binop("sub", field, lo2, hi2), twf)
+    return torch.stack([u.reshape(N_LIMBS, mid, half),
+                        v.reshape(N_LIMBS, mid, half)], dim=2)
+
+
+def plain_mul_tiled(field, a, t):
+    """a: (16, mid, k), t: (16, k) -> a * t, t shared by every row."""
+    mid, k = a.shape[1], a.shape[2]
+    tt = t[:, None, :].expand(N_LIMBS, mid, k).reshape(N_LIMBS, mid * k)
+    return plain_binop("mul", field, a.reshape(N_LIMBS, mid * k),
+                       tt).reshape(a.shape)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _check_limbs(name: str, x: torch.Tensor, device=None):
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: expected torch.int32 limbs, got {x.dtype}")
+    if x.ndim < 1 or x.shape[0] != N_LIMBS:
+        raise ValueError(f"{name}: expected (16, ...) limbs, got "
+                         f"{tuple(x.shape)}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+
+
+def _lib():
+    lib = build.load("field_kernels")
+    if not getattr(lib, "_h2_typed", False):
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.h2_field_binop.argtypes = [ci, ci, vp, ll, ll, vp, ll, ll, vp,
+                                       ll, vp]
+        lib.h2_field_binop.restype = ci
+        lib.h2_butterfly.argtypes = [ci, vp, vp, ll, ll, vp, ll, ll, vp, ll,
+                                     ll, vp]
+        lib.h2_butterfly.restype = ci
+        lib.h2_mul_tiled.argtypes = [ci, vp, vp, vp, ll, ll, vp]
+        lib.h2_mul_tiled.restype = ci
+        lib._h2_typed = True
+    return lib
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def binop(op: str, field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Field binary op on (16, *batch) limb arrays, broadcasting the batch
+    dims (an operand with fewer dims is extended on the right, so a (16,)
+    scalar meets any batch).  An operand that is a single element is
+    broadcast by the kernel itself; any other broadcast is materialised
+    first."""
+    if op not in _OPS:
+        raise ValueError(f"unknown field op {op!r}")
+    _check_limbs("binop a", a)
+    _check_limbs("binop b", b, a.device)
+    # limbs lead, so an operand with fewer batch dims gains trailing ones
+    nd = max(a.ndim, b.ndim)
+    a = a.reshape(tuple(a.shape) + (1,) * (nd - a.ndim))
+    b = b.reshape(tuple(b.shape) + (1,) * (nd - b.ndim))
+    if any(x != y and 1 not in (x, y) for x, y in zip(a.shape, b.shape)):
+        raise ValueError(f"binop: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not broadcast")
+    shape = tuple(max(x, y) for x, y in zip(a.shape, b.shape))
+    n = 1
+    for d in shape[1:]:
+        n *= d
+
+    def flat(x):
+        if x.numel() == N_LIMBS and n != 1:
+            return x.reshape(N_LIMBS, 1), True
+        return x.expand(shape).reshape(N_LIMBS, n).contiguous(), False
+
+    a2, a_one = flat(a)
+    b2, b_one = flat(b)
+    if a.device.type == "cpu":
+        if a_one:
+            a2 = a2.expand(N_LIMBS, n)
+        return plain_binop(op, field, a2, b2).reshape(shape)
+    if a.device.type != "cuda":
+        raise ValueError(f"binop: unsupported device {a.device}")
+    a2, b2 = a2.contiguous(), b2.contiguous()
+    out = torch.empty((N_LIMBS, n), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _lib().h2_field_binop(
+            _OPS[op], _FIELD_IDS[field.name],
+            a2.data_ptr(), 1 if a_one else n, 0 if a_one else 1,
+            b2.data_ptr(), 1 if b_one else n, 0 if b_one else 1,
+            out.data_ptr(), n, _stream(a.device))
+    _raise_on(err, f"field {op}")
+    launch_counts["binop"] += 1
+    return out.reshape(shape)
+
+
+def butterfly(field, lo: torch.Tensor, hi: torch.Tensor, tw: torch.Tensor,
+              rep: int = 1) -> torch.Tensor:
+    """Radix-2 DIF butterfly.  lo, hi: (16, mid, half) — the two halves of
+    the rows of one (16, mid, 2, half) array, or any two arrays with equal
+    strides and unit stride along `half`; tw: (16, half // rep) contiguous.
+    Returns a contiguous (16, mid, 2, half) array whose [:, :, 0] is
+    u = lo + hi and [:, :, 1] is v = (lo - hi) * tw[(j % half) // rep]."""
+    _check_limbs("butterfly lo", lo)
+    _check_limbs("butterfly hi", hi, lo.device)
+    _check_limbs("butterfly tw", tw, lo.device)
+    if lo.ndim != 3 or hi.shape != lo.shape:
+        raise ValueError("butterfly: lo and hi must both be (16, mid, half)")
+    mid, half = lo.shape[1], lo.shape[2]
+    if rep < 1 or half % rep or tuple(tw.shape) != (N_LIMBS, half // rep):
+        raise ValueError(
+            f"butterfly: tw must be (16, {half}//{rep}), got "
+            f"{tuple(tw.shape)}")
+    if lo.device.type == "cpu":
+        return plain_butterfly(field, lo, hi, tw, rep)
+    if lo.device.type != "cuda":
+        raise ValueError(f"butterfly: unsupported device {lo.device}")
+    if lo.stride() != hi.stride() or (half > 1 and lo.stride(2) != 1):
+        raise ValueError("butterfly: lo and hi need equal strides and unit "
+                         "stride along the last axis")
+    if not tw.is_contiguous():
+        raise ValueError("butterfly: tw must be contiguous")
+    out = torch.empty((N_LIMBS, mid, 2, half), dtype=torch.int32,
+                      device=lo.device)
+    with torch.cuda.device(lo.device):
+        err = _lib().h2_butterfly(
+            _FIELD_IDS[field.name], lo.data_ptr(), hi.data_ptr(),
+            lo.stride(0), lo.stride(1), tw.data_ptr(), half // rep, rep,
+            out.data_ptr(), mid, half, _stream(lo.device))
+    _raise_on(err, "butterfly")
+    launch_counts["butterfly"] += 1
+    return out
+
+
+def mul_tiled(field, a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """a: (16, *mid, k) times a table t: (16, k) shared by every row (never
+    materialised at a's size).  Returns a's shape."""
+    _check_limbs("mul_tiled a", a)
+    _check_limbs("mul_tiled t", t, a.device)
+    if a.ndim < 2 or t.ndim != 2 or t.shape[1] != a.shape[-1]:
+        raise ValueError(f"mul_tiled: a {tuple(a.shape)} and t "
+                         f"{tuple(t.shape)} do not match")
+    k = a.shape[-1]
+    mid = a.numel() // (N_LIMBS * k) if k else 0
+    if a.device.type == "cpu":
+        return plain_mul_tiled(field, a.reshape(N_LIMBS, mid, k),
+                               t).reshape(a.shape)
+    if a.device.type != "cuda":
+        raise ValueError(f"mul_tiled: unsupported device {a.device}")
+    if not a.is_contiguous() or not t.is_contiguous():
+        raise ValueError("mul_tiled: a and t must be contiguous")
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _lib().h2_mul_tiled(
+            _FIELD_IDS[field.name], a.data_ptr(), t.data_ptr(),
+            out.data_ptr(), mid, k, _stream(a.device))
+    _raise_on(err, "mul_tiled")
+    launch_counts["mul_tiled"] += 1
+    return out

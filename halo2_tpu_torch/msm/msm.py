@@ -1,0 +1,121 @@
+"""Multi-scalar multiplication (Pippenger) on limb tensors.
+
+One algorithm on every device and at every size: the sort-based signed
+window path of msm/sorted.py (sort by digit, blocked prefix scan of point
+additions, bucket sums from prefix differences, Abel summation), then a
+Horner combine over the windows.
+
+  * `max_bits` reproduces the reference's bounded-window fast path
+    (`commit_lagrange_with_bound`): scalars known to be short (u16 blinding
+    rows) only generate ceil(max_bits/c) windows.
+
+Identity caveat: affine input points must not be the group identity (true
+for all SRS commit paths). Zero scalars are fine (digit-0 buckets are
+discarded).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from halo2_tpu_torch.curves import g1
+from halo2_tpu_torch.fields.limbs import N_LIMBS
+from halo2_tpu_torch.msm import sorted as msm_sorted
+from halo2_tpu_torch.utils import profiling
+
+SORT_BLOCK = 2048
+
+
+def _combine_windows(totals, c_bits: int):
+    """Horner over windows: acc = (acc * 2^c) + T_w, w descending.
+    totals: 3 coords of (16, *lanes, W); returns 3 coords of (16, *lanes)."""
+    W = totals[0].shape[-1]
+    acc = tuple(t[..., W - 1] for t in totals)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c_bits):
+            acc = g1.double(acc)
+        acc = g1.add(acc, tuple(t[..., w] for t in totals))
+    return acc
+
+
+def _block_for(n: int) -> int:
+    """Scan block: SORT_BLOCK, or for a smaller n the power of two at or
+    above it (the whole input is then one round of the scan)."""
+    if n >= SORT_BLOCK:
+        return SORT_BLOCK
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def window_bits_for(block: int) -> int:
+    """Signed window width c.  The per-window cost outside the scan (bucket
+    boundaries, Abel folds) grows with 2^(c-1) whatever n is, so an input
+    of fewer than SORT_BLOCK points takes c = log2(block), as Pippenger's
+    c ~ log n asks, and never less than 4; from SORT_BLOCK points on, c is
+    SIGNED_C_BITS."""
+    if block >= SORT_BLOCK:
+        return msm_sorted.SIGNED_C_BITS
+    return max(4, block.bit_length() - 1)
+
+
+def msm_many(points, scalar_columns, max_bits=None):
+    """Several MSMs over the same points: scalar_columns is a list of
+    (16, n) Montgomery Fr columns, max_bits a list of per-column bounds on
+    the scalars' bit length (default: full scalars).  Returns projective
+    (X, Y, Z) limbs, each (16, C).
+
+    Every column gets its own window totals (a short column has fewer
+    windows: the reference's bounded-window fast path,
+    `commit_lagrange_with_bound`); the totals are padded with the identity
+    to one window count and ONE Horner pass combines all the columns, so
+    its c * W sequential doublings are paid once, not per column.
+
+    n is padded up to a multiple of the scan block with copies of the
+    first point under zero scalars."""
+    px, py = points
+    n = px.shape[1]
+    if n == 0:
+        raise ValueError("msm of no points")
+    if not scalar_columns:
+        raise ValueError("msm_many needs at least one column")
+    bits = list(max_bits) if max_bits is not None \
+        else [256] * len(scalar_columns)
+    if len(bits) != len(scalar_columns):
+        raise ValueError("one max_bits entry per column")
+    block = _block_for(n)
+    pad = (-n) % block
+    if pad:
+        px = torch.cat([px, px[:, :1].expand(N_LIMBS, pad)], dim=1)
+        py = torch.cat([py, py[:, :1].expand(N_LIMBS, pad)], dim=1)
+    c = window_bits_for(block)
+    per_column = []
+    for scalars_mont, mb in zip(scalar_columns, bits):
+        profiling.incr("msm_calls")
+        profiling.incr("msm_points", n)
+        if pad:
+            scalars_mont = torch.nn.functional.pad(scalars_mont, (0, pad))
+        num_windows = msm_sorted.num_windows_for(mb, c)
+        group = msm_sorted.auto_group(n + pad, num_windows)
+        per_column.append(msm_sorted.window_totals(
+            px, py, scalars_mont, mb, group, block, c))
+    width = max(t[0].shape[1] for t in per_column)
+    ident = g1.identity((width,), px.device)
+    totals = tuple(
+        torch.stack([torch.cat([t[k], ident[k][:, t[k].shape[1]:]], dim=1)
+                     for t in per_column], dim=1)
+        for k in range(3))                              # (16, C, W)
+    return _combine_windows(totals, c)
+
+
+def msm(points, scalars_mont, max_bits: int = 256):
+    """points: (x, y) each (16, n) Montgomery affine (no identities);
+    scalars_mont: (16, n) Montgomery Fr. Returns projective (X, Y, Z) limbs,
+    each (16,).  max_bits bounds the scalar bit-length; the default covers
+    full scalars."""
+    out = msm_many(points, [scalars_mont], [max_bits])
+    return tuple(c[:, 0] for c in out)
+
+
+def msm_host_result(points, scalars_mont, **kw):
+    """msm + to_affine + decode, for tests and host callers."""
+    proj = msm(points, scalars_mont, **kw)
+    return g1.decode_points(g1.to_affine(tuple(p[:, None] for p in proj)))[0]

@@ -1,0 +1,224 @@
+"""KZG structured reference string (Params) and commitment operations.
+
+Analogue of halo2_proofs/src/poly/commitment.rs:
+  * `Params { k, n, g, g_lagrange, s_g2 }` — the G1 bases live on the
+    device as (2, 16, n) Montgomery limb tensors feeding the MSM; host
+    copies exist only for (de)serialization.
+  * `unsafe_setup` draws toxic s and builds both bases analytically
+    (commitment.rs:56-124): the scalar tables (powers of s, Lagrange coeffs
+    L_i(s)) are exact host big-int math, the n point multiplications run as
+    one batched double-and-add on the device.
+  * `commit` / `commit_lagrange` wrap the Pippenger MSM
+    (commitment.rs:129-222).
+  * `write`/`read` reproduce the reference Params wire format (k LE u32,
+    compressed g points, compressed g_lagrange, length-prefixed s_g2 bytes —
+    commitment.rs:241-294) so SRS files interoperate.
+"""
+
+from __future__ import annotations
+
+import random
+
+import torch
+
+from halo2_tpu_torch.curves import g1, host
+from halo2_tpu_torch.fields.limbs import N_LIMBS, ints_to_limbs_np, to_tensor
+from halo2_tpu_torch.msm.msm import msm_many
+from halo2_tpu_torch.ntt.ntt import get_ntt
+from halo2_tpu_torch.pairing import bn254 as pairing
+from halo2_tpu_torch.transcript.blake2b import point_from_bytes, point_to_bytes
+from halo2_tpu_torch.utils.device import require_device
+
+Q = pairing.Q
+R = pairing.R
+
+
+# -- G2 compressed codec (64 bytes: x.c0 || x.c1 LE, y parity in top bit) ----
+
+def _fq2_sqrt(a: pairing.FQ2):
+    """Square root in Fq2 for q = 3 (mod 4) (Adj, Rodriguez-Henriquez)."""
+    if a == pairing.FQ2.zero():
+        return a
+    a1 = a ** ((Q - 3) // 4)
+    alpha = a1 * a1 * a
+    x0 = a1 * a
+    if alpha == pairing.FQ2((Q - 1, 0)):
+        return pairing.FQ2((0, 1)) * x0  # i * x0
+    b = (alpha + 1) ** ((Q - 1) // 2)
+    x = b * x0
+    return x if x * x == a else None
+
+
+def g2_to_bytes(p) -> bytes:
+    if p is None:
+        return bytes(64)
+    x, y = p
+    out = bytearray(x.coeffs[0].to_bytes(32, "little") + x.coeffs[1].to_bytes(32, "little"))
+    out[63] |= (y.coeffs[0] & 1) << 7
+    return bytes(out)
+
+
+def g2_from_bytes(b: bytes):
+    arr = bytearray(b)
+    sign = (arr[63] >> 7) & 1
+    arr[63] &= 0x7F
+    c0 = int.from_bytes(bytes(arr[:32]), "little")
+    c1 = int.from_bytes(bytes(arr[32:]), "little")
+    if c0 == 0 and c1 == 0 and sign == 0:
+        return None
+    x = pairing.FQ2((c0, c1))
+    y = _fq2_sqrt(x * x * x + pairing.B2)
+    if y is None:
+        raise ValueError("invalid G2 point encoding")
+    if y.coeffs[0] & 1 != sign:
+        y = -y
+    return (x, y)
+
+
+class Params:
+    """Prover parameters: SRS bases on the device + s_g2 for the verifier."""
+
+    def __init__(self, k: int, g_dev, g_lagrange_dev, s_g2):
+        self.k = k
+        self.n = 1 << k
+        self.g = g_dev                    # (2, 16, n) Montgomery affine
+        self.g_lagrange = g_lagrange_dev  # (2, 16, n)
+        self.s_g2 = s_g2                  # host G2 point (FQ2 pair)
+        self.device = g_dev.device
+
+    # -- setup ----------------------------------------------------------
+    @classmethod
+    def unsafe_setup(cls, k: int, seed: int | None = None,
+                     device="cuda") -> "Params":
+        device = require_device(device)
+        rng = random.Random(seed)
+        s = rng.randrange(1, R)
+        n = 1 << k
+
+        # powers of s and Lagrange evals L_i(s) — exact host math
+        powers = []
+        acc = 1
+        for _ in range(n):
+            powers.append(acc)
+            acc = acc * s % R
+
+        omega = get_ntt(k, device).omega
+        n_inv = pow(n, R - 2, R)
+        multiplier = (pow(s, n, R) - 1) * n_inv % R
+        # L_i(s) = multiplier * w^i / (s - w^i)
+        root_pows, rp = [], 1
+        for _ in range(n):
+            root_pows.append(rp)
+            rp = rp * omega % R
+        denoms = [(s - rp) % R for rp in root_pows]
+        denom_invs = _batch_inv_host(denoms, R)
+        lag = [multiplier * rp % R * di % R for rp, di in zip(root_pows, denom_invs)]
+
+        gen = g1.generator(device)
+        gen_b = (gen[0][:, None].expand(N_LIMBS, n).contiguous(),
+                 gen[1][:, None].expand(N_LIMBS, n).contiguous())
+        g_proj = g1.scalar_mul(gen_b, to_tensor(ints_to_limbs_np(powers),
+                                                device))
+        g_dev = torch.stack(g1.to_affine(g_proj))
+        gl_proj = g1.scalar_mul(gen_b, to_tensor(ints_to_limbs_np(lag),
+                                                 device))
+        gl_dev = torch.stack(g1.to_affine(gl_proj))
+
+        s_g2 = pairing.g2_mul(pairing.G2_GEN, s)
+        return cls(k, g_dev, gl_dev, s_g2)
+
+    # -- commitments ------------------------------------------------------
+    def commit(self, coeffs):
+        """Commit to coefficient-form poly values (16, n) Montgomery.
+        Returns projective (X, Y, Z), each (16,)."""
+        return tuple(c[:, 0] for c in self.commit_many([coeffs]))
+
+    def commit_lagrange(self, values, max_bits: int = 256):
+        """Commit to Lagrange-form values; max_bits enables the
+        bounded-window fast path (commitment.rs:199-222)."""
+        return tuple(c[:, 0] for c in self.commit_many(
+            [values], [max_bits], base="lagrange"))
+
+    def commit_many(self, columns, max_bits=None, base: str = "coeff"):
+        """Commit several (16, n) columns against one basis ("coeff": g,
+        "lagrange": g_lagrange) in one batched MSM.  Returns projective
+        (X, Y, Z), each (16, C)."""
+        if base not in ("coeff", "lagrange"):
+            raise ValueError(f"unknown basis {base!r}")
+        bases = self.g if base == "coeff" else self.g_lagrange
+        return msm_many((bases[0], bases[1]), list(columns), max_bits)
+
+    def commit_many_affine(self, columns, max_bits=None,
+                           base: str = "coeff") -> list:
+        """commit_many, then ONE batch inversion and one transfer to the
+        host: the commitments as host affine points."""
+        if not columns:
+            return []
+        return g1.decode_points(g1.to_affine(
+            self.commit_many(columns, max_bits, base)))
+
+    def verifier(self, public_inputs_size: int) -> "ParamsVerifier":
+        gl_host = g1.decode_points(
+            self.g_lagrange[:, :, :max(public_inputs_size, 1)])
+        return ParamsVerifier(
+            k=self.k,
+            g1=host.G1_GEN,
+            g2=pairing.G2_GEN,
+            s_g2=self.s_g2,
+            g_lagrange=gl_host[:public_inputs_size],
+        )
+
+    # -- serialization (reference wire format) ----------------------------
+    def write(self, fh) -> None:
+        fh.write(self.k.to_bytes(4, "little"))
+        for base in (self.g, self.g_lagrange):
+            for p in g1.decode_points(base):
+                fh.write(point_to_bytes(p))
+        extra = g2_to_bytes(self.s_g2)
+        fh.write(len(extra).to_bytes(4, "little"))
+        fh.write(extra)
+
+    @classmethod
+    def read(cls, fh, device="cuda") -> "Params":
+        device = require_device(device)
+        k = int.from_bytes(fh.read(4), "little")
+        n = 1 << k
+        g_pts = [point_from_bytes(fh.read(32)) for _ in range(n)]
+        gl_pts = [point_from_bytes(fh.read(32)) for _ in range(n)]
+        extra_len = int.from_bytes(fh.read(4), "little")
+        s_g2 = g2_from_bytes(fh.read(extra_len))
+        return cls(k, g1.encode_points(g_pts, device),
+                   g1.encode_points(gl_pts, device), s_g2)
+
+
+class ParamsVerifier:
+    """Verifier parameters (commitment.rs:33-40): tiny host-side struct."""
+
+    def __init__(self, k: int, g1, g2, s_g2, g_lagrange):
+        self.k = k
+        self.n = 1 << k
+        self.g1 = g1
+        self.g2 = g2
+        self.s_g2 = s_g2
+        self.g_lagrange = g_lagrange  # host points, one per instance row
+
+    def commit_lagrange(self, values: list) -> object:
+        """Small host MSM over the instance Lagrange bases (Jacobian
+        Pippenger — no per-op modular inversions)."""
+        return host.msm_jacobian(self.g_lagrange[:len(values)], list(values))
+
+
+def _batch_inv_host(xs, p):
+    """Host big-int batch inversion (Montgomery trick); zeros map to zero."""
+    n = len(xs)
+    prefix = [1] * (n + 1)
+    for i, x in enumerate(xs):
+        prefix[i + 1] = prefix[i] * (x if x else 1) % p
+    inv_all = pow(prefix[n], p - 2, p)
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        x = xs[i]
+        if x:
+            out[i] = prefix[i] * inv_all % p
+            inv_all = inv_all * x % p
+    return out

@@ -1,0 +1,48 @@
+#!/usr/bin/env python3
+"""Generate tests/data/torch_golden_proof.json from the JAX package.
+
+    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py
+
+Proves `tests/test_e2e.py`'s SimpleCircuit (K = 4, Params.unsafe_setup
+seed 7, a = 3, b = 5) with halo2_tpu for the prover seeds 0 and 1 and
+writes the proof bytes as hex.  The port must reproduce these bytes:
+`chip_smoke.py` checks that on the card, and tests/test_torch_prover.py
+pins the file against the live JAX proof.
+"""
+
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+import tests.conftest  # noqa: E402,F401  (the test suite's JAX settings)
+from halo2_tpu.plonk.keygen import keygen  # noqa: E402
+from halo2_tpu.plonk.prover import create_proof  # noqa: E402
+from halo2_tpu.poly.commitment import Params  # noqa: E402
+from tests.test_e2e import K, SimpleCircuit, expected_out  # noqa: E402
+
+PARAMS_SEED = 7
+A, B = 3, 5
+PROVER_SEEDS = (0, 1)
+
+
+def main():
+    params = Params.unsafe_setup(K, seed=PARAMS_SEED)
+    _, pk = keygen(params, SimpleCircuit())
+    out = expected_out(A, B)
+    proofs = {str(s): create_proof(params, pk, SimpleCircuit(A, B), [[out]],
+                                   seed=s).hex() for s in PROVER_SEEDS}
+    golden = {"circuit": "tests/test_e2e.py::SimpleCircuit", "k": K,
+              "params_seed": PARAMS_SEED, "a": A, "b": B, "proofs": proofs}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_golden_proof.json")
+    with open(path, "w") as fh:
+        json.dump(golden, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,110 @@
+"""The port stands alone: no module of halo2_tpu_torch, nor chip_smoke.py,
+imports jax or anything of halo2_tpu; and the entry points raise — they do
+not carry on on the CPU — when no device is passed and there is no card.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import halo2_tpu_torch
+from halo2_tpu_torch.circuits import SimpleCircuit
+from halo2_tpu_torch.plonk.keygen import keygen
+from halo2_tpu_torch.plonk.prover import create_proof
+from halo2_tpu_torch.poly.commitment import Params
+from halo2_tpu_torch.utils.device import require_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(halo2_tpu_torch.__path__,
+                                          "halo2_tpu_torch."))
+
+_BLOCKED_IMPORT = """
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["halo2_tpu"] = None
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+leaked = [m for m in sys.modules
+          if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+          or m == "halo2_tpu" or m.startswith("halo2_tpu.")]
+leaked = [m for m in leaked if sys.modules[m] is not None]
+assert not leaked, leaked
+print("imported", len(sys.argv) - 1)
+"""
+
+
+def test_package_has_its_modules():
+    for name in ("halo2_tpu_torch.fields.cuda_ops",
+                 "halo2_tpu_torch.curves.cuda_point",
+                 "halo2_tpu_torch.ntt.ntt", "halo2_tpu_torch.msm.sorted",
+                 "halo2_tpu_torch.plonk.prover",
+                 "halo2_tpu_torch.plonk.verifier",
+                 "halo2_tpu_torch.convert"):
+        assert name in MODULES
+
+
+def test_every_module_imports_without_jax_or_halo2_tpu():
+    """All modules of the package and chip_smoke, in one subprocess where
+    importing jax or halo2_tpu raises."""
+    done = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT, *MODULES, "chip_smoke"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert f"imported {len(MODULES) + 1}" in done.stdout
+
+
+def test_sources_do_not_name_jax():
+    base = os.path.join(ROOT, "halo2_tpu_torch")
+    for dirpath, dirs, files in os.walk(base):
+        if "_build" in dirs:
+            dirs.remove("_build")           # build outputs, not sources
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    text = fh.read()
+                assert "import jax" not in text, f
+                assert "from halo2_tpu." not in text, f
+                assert "import halo2_tpu\n" not in text, f
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+
+
+def test_require_device():
+    assert require_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        require_device("meta")
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        require_device()
+
+
+def test_unsafe_setup_raises_without_a_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Params.unsafe_setup(2, seed=1)
+
+
+def test_keygen_and_create_proof_raise_without_a_card():
+    _no_card()
+    params = Params.unsafe_setup(2, seed=1, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        keygen(params, SimpleCircuit())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_proof(params, None, SimpleCircuit(3, 5), [[0]], seed=0)
+
+
+def test_chip_smoke_exits_nonzero_and_prints_no_result_without_a_card():
+    _no_card()
+    done = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode != 0
+    assert done.stdout.strip() == ""
