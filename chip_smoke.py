@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of halo2_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--k K] [--phases env,kernels,golden,prove]
+    python3 chip_smoke.py [--k K] [--phases env,kernels,golden,prove,dft]
 
 Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
 
@@ -14,7 +14,14 @@ Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
   prove    unsafe_setup -> keygen -> create_proof -> verify_proof for a
            row-filling chain of mul gates at 2^k rows, with every kernel's
            launch count set to 0 just before and read just after; a proof
-           with one byte flipped must be rejected.
+           with one byte flipped must be rejected;
+  dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
+           m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
+           to 0 just before and read just after, its output against the host
+           big-int DFT mod p (all-0xFF inputs among the columns) and against
+           the CIOS NTT, kernel K6 against its plain version exactly (the
+           probe's sums, a ragged B, the largest and the zero sums), and the
+           probe's times beside their bounds.
 
 Prints one JSON object per phase, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure is a non-zero
@@ -24,6 +31,7 @@ exit; without a CUDA card the script exits before printing any result.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -36,25 +44,23 @@ from halo2_tpu_torch.circuits import MulChainCircuit, SimpleCircuit
 from halo2_tpu_torch.curves import cuda_point, g1
 from halo2_tpu_torch.fields import cuda_ops
 from halo2_tpu_torch.fields.bn254 import fq, fr
-from halo2_tpu_torch.fields.limbs import N_LIMBS
+from halo2_tpu_torch.fields.limbs import N_LIMBS, limbs_to_ints
 from halo2_tpu_torch.msm import sorted as msm_sorted
 from halo2_tpu_torch.msm.msm import SORT_BLOCK
+from halo2_tpu_torch.ntt import dft_matmul as dm
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
 from halo2_tpu_torch.plonk.prover import create_proof
 from halo2_tpu_torch.plonk.verifier import verify_proof
 from halo2_tpu_torch.poly.commitment import Params
 from halo2_tpu_torch.utils import build, profiling
+from halo2_tpu_torch.utils.profiling import bound_ms as _bound
+from halo2_tpu_torch.utils.profiling import max_abs_err as _max_err
+from halo2_tpu_torch.utils.profiling import time_cuda as _time_cuda
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_proof.json")
-
-# Peaks of one H100 SXM at its full power limit (NVIDIA's data sheet).  The
-# data sheet gives no 32-bit integer rate: an SM issues half as many 32-bit
-# integer multiply-adds a clock as float32 ones, so the integer peak is
-# taken as half the float32 peak, a multiply-add counted as two operations.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2
+DFT_PROBE = os.path.join(ROOT, "examples", "torch_mxu_dft_probe.py")
 
 # 32-bit integer operations of one field operation, as the kernels do it:
 # a CIOS Montgomery product is 8 rows of (8 a*b_i + 8 m*p) multiply-adds
@@ -64,40 +70,6 @@ OPS_ADD = 16
 # field products / additions of the point formulas (curves/formulas.py)
 POINT_OPS = {"add": (12, 29), "add_mixed": (11, 25), "double": (8, 17)}
 WORD = 4
-
-
-def _time_cuda(fn, reps: int) -> float:
-    """Milliseconds per call of fn, by CUDA events around `reps` calls."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _max_err(got, want) -> int:
-    if not isinstance(got, (tuple, list)):
-        got, want = [got], [want]
-    err = 0
-    for g, w in zip(got, want):
-        if g.shape != w.shape:
-            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if g.numel():
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                               .abs().max().item()))
-    return err
-
-
-def _bound(n_bytes: float, n_ops: float):
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT32_OPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
 
 
 def _rand_field(F, shape, gen, specials=True):
@@ -394,7 +366,8 @@ def phase_golden(device):
 
 
 def _reset_counts():
-    for counts in (cuda_ops.launch_counts, cuda_point.launch_counts):
+    for counts in (cuda_ops.launch_counts, cuda_point.launch_counts,
+                   dm.launch_counts):
         for key in counts:
             counts[key] = 0
 
@@ -450,9 +423,96 @@ def phase_prove(k: int, seed: int, device) -> dict:
     return launches
 
 
+def _load_dft_probe():
+    spec = importlib.util.spec_from_file_location("torch_mxu_dft_probe",
+                                                  DFT_PROBE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+DFT_SIZES = (16, 64)
+DFT_B = 1 << 17
+
+
+def phase_dft(device, smi: str):
+    """The probe's path at m = 16 and 64: returns K6's entry for the
+    kernels line and the launches of that path."""
+    probe = _load_dft_probe()
+    t0 = time.time()
+    cases = {m: (dm.dft_matrices(m, device),
+                 probe.probe_input(m, DFT_B, device)) for m in DFT_SIZES}
+    _reset_counts()                          # the probe's path starts here
+    outs = {m: dm.dft_matmul(x, mats[0], mats[1], m)
+            for m, (mats, x) in cases.items()}
+    torch.cuda.synchronize()
+    launches = dict(dm.launch_counts)        # and ends here
+    if launches["dft_epilogue"] <= 0:
+        raise AssertionError("kernel dft_epilogue was never launched on the "
+                             "probe's path")
+    results, worst = {}, 0
+    for m, (mats, x) in cases.items():
+        res = probe.check(x, outs[m], mats, m)
+        worst = max(worst, res["epilogue_max_abs_err"])
+        # a ragged B, checked the same way
+        xr = probe.probe_input(m, 1000, device, seed=1)
+        ragged = probe.check(xr, dm.dft_matmul(xr, mats[0], mats[1], m),
+                             mats, m)
+        worst = max(worst, ragged["epilogue_max_abs_err"])
+        # the largest sums these shapes allow, and zero, in every carry
+        # position: the value is sum_t 17 v 2^(8t)
+        for v in (m * dm.NB * 15 * 255, 0):
+            s_ = torch.full((m * dm.NB, 1000), float(v), dtype=torch.float32,
+                            device=device)
+            got = dm.dft_epilogue(s_, s_, m)
+            worst = max(worst, _max_err(
+                got, dm.plain_dft_epilogue(s_, s_, m)))
+            want = sum(17 * v << (8 * t) for t in range(dm.NB)) % dm.P
+            have = limbs_to_ints(got[:, :, 0].cpu().numpy())
+            if any(h % dm.P != want or h >= 1 << 271 for h in have):
+                raise AssertionError(f"m={m}: K6 on the sums {v} is not "
+                                     f"congruent to their value")
+        res["ragged_B1000"] = {k: ragged[k] for k in (
+            "exact_mod_p", "ntt_agrees", "epilogue_max_abs_err")}
+        res.update(probe.measure(m, DFT_B, x, mats))
+        results[m] = res
+    if worst != 0:
+        raise AssertionError(f"kernel dft_epilogue disagrees with its plain "
+                             f"version: max abs err {worst}")
+    print(json.dumps({"dft": {
+        "card": smi, "sizes": results, "launches": launches,
+        "seconds": round(time.time() - t0, 2)}}), flush=True)
+
+    def variant(m):
+        r = results[m]
+        return {"variant": f"m={m}", "B": DFT_B,
+                "ms": r["ms"]["epilogue_k6"],
+                "plain_ms": r["ms"]["epilogue_plain"],
+                "bound_ms": r["bound_ms"]["epilogue_k6"],
+                "bound_by": r["bound_by"]["epilogue_k6"],
+                "products_ms": r["ms"]["products"],
+                "products_bound_ms": r["bound_ms"]["products"]}
+    head = variant(DFT_SIZES[0])
+    entry = {
+        "name": "dft_epilogue", "route": "cuda",
+        "source": "halo2_tpu_torch/csrc/dft_kernels.cu",
+        "replaces": "examples/mxu_dft_probe.py:175",
+        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "products_ms": head["products_ms"],
+        "shape": f"lo, hi ({DFT_SIZES[0] * dm.NB}, {DFT_B}) float32 -> "
+                 f"(17, {DFT_SIZES[0]}, {DFT_B})",
+        "launches_from": "the dft phase (dft_matmul at m = 16 and 64); the "
+                         "prove path launches it 0 times",
+        "variants": [variant(m) for m in DFT_SIZES]}
+    return entry, launches
+
+
 LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "mul_tiled": "mul_tiled", "point_op": "point_op",
-              "add_mixed_packed": "add_mixed_packed"}
+              "add_mixed_packed": "add_mixed_packed",
+              "dft_epilogue": "dft_epilogue"}
+ALL_PHASES = "env,kernels,golden,prove,dft"
 
 
 def main(argv=None) -> int:
@@ -460,7 +520,7 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=16,
                     help="log2 of the rows of the prove phase (default 16)")
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--phases", default="env,kernels,golden,prove",
+    ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma-separated subset, for a shorter run; the "
                          "last line is only printed after a full run")
     args = ap.parse_args(argv)
@@ -478,11 +538,15 @@ def main(argv=None) -> int:
         phase_golden(device)
     launches = phase_prove(args.k, args.seed, device) \
         if "prove" in phases else {}
+    if "dft" in phases:
+        entry, dft_launches = phase_dft(device, out["smi"])
+        entries.append(entry)
+        launches.update(dft_launches)
     for e in entries:
         e["launches"] = launches.get(LAUNCH_KEY[e["name"]], 0)
     print(json.dumps({"kernels": entries}), flush=True)
     print(out["smi"], flush=True)
-    if phases != {"env", "kernels", "golden", "prove"}:
+    if phases != set(ALL_PHASES.split(",")):
         print("chip_smoke: partial run, no result line", file=sys.stderr)
         return 3
     print(json.dumps({"ok": True, "device": {

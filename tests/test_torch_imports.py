@@ -1,5 +1,5 @@
 """The port stands alone: no module of halo2_tpu_torch, nor chip_smoke.py,
-imports jax or anything of halo2_tpu; and the entry points raise — they do
+nor the port's examples, imports jax or anything of halo2_tpu; and the entry points raise — they do
 not carry on on the CPU — when no device is passed and there is no card.
 """
 
@@ -23,6 +23,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages(halo2_tpu_torch.__path__,
                                           "halo2_tpu_torch."))
+# scripts beside the package, imported by name from the repo's root
+SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
+           "examples.torch_profile_prove"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys
@@ -42,7 +45,8 @@ print("imported", len(sys.argv) - 1)
 def test_package_has_its_modules():
     for name in ("halo2_tpu_torch.fields.cuda_ops",
                  "halo2_tpu_torch.curves.cuda_point",
-                 "halo2_tpu_torch.ntt.ntt", "halo2_tpu_torch.msm.sorted",
+                 "halo2_tpu_torch.ntt.ntt", "halo2_tpu_torch.ntt.dft_matmul",
+                 "halo2_tpu_torch.msm.sorted",
                  "halo2_tpu_torch.plonk.prover",
                  "halo2_tpu_torch.plonk.verifier",
                  "halo2_tpu_torch.convert"):
@@ -50,27 +54,30 @@ def test_package_has_its_modules():
 
 
 def test_every_module_imports_without_jax_or_halo2_tpu():
-    """All modules of the package and chip_smoke, in one subprocess where
-    importing jax or halo2_tpu raises."""
+    """All modules of the package, chip_smoke and the port's examples, in
+    one subprocess where importing jax or halo2_tpu raises."""
     done = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT, *MODULES, "chip_smoke"],
+        [sys.executable, "-c", _BLOCKED_IMPORT, *MODULES, *SCRIPTS],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-2000:]
-    assert f"imported {len(MODULES) + 1}" in done.stdout
+    assert f"imported {len(MODULES) + len(SCRIPTS)}" in done.stdout
 
 
 def test_sources_do_not_name_jax():
     base = os.path.join(ROOT, "halo2_tpu_torch")
+    paths = [os.path.join(ROOT, s.replace(".", os.sep) + ".py")
+             for s in SCRIPTS]
     for dirpath, dirs, files in os.walk(base):
         if "_build" in dirs:
             dirs.remove("_build")           # build outputs, not sources
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    text = fh.read()
-                assert "import jax" not in text, f
-                assert "from halo2_tpu." not in text, f
-                assert "import halo2_tpu\n" not in text, f
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            text = fh.read()
+        assert "import jax" not in text, path
+        assert "from halo2_tpu." not in text, path
+        assert "import halo2_tpu\n" not in text, path
 
 
 def _no_card():

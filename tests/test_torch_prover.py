@@ -6,9 +6,15 @@ constant, a public input), K = 4, Params seed 7, opened with GWC.
 Both packages prove from the same seeds.  Tolerance: none — SRS bytes, the
 pinned verifying key and the proof bytes are compared for equality, once
 with the port's own key and once with the JAX key carried across as numpy
-arrays by halo2_tpu_torch.convert.  One module-scoped fixture makes every
-JAX call (one keygen, one proof per seed), at the programs
-tests/test_e2e.py already compiles.
+arrays by halo2_tpu_torch.convert.
+
+The JAX package's bytes come from tests/data/torch_golden_proof.json
+(written by tests/data/gen_torch_golden.py), which one test holds against
+the live JAX package.  Live JAX objects are made only where a test needs
+them (the carried key, the JAX verifier, that check): the module-scoped
+`jax_side` fixture makes the JAX keygen, and the JAX proofs are made once,
+in the golden check; so a test worker that runs none of those tests makes
+no JAX call.  The port's proofs are made at first use, per seed.
 """
 
 import io
@@ -23,7 +29,7 @@ from halo2_tpu.plonk.keygen import keygen as j_keygen
 from halo2_tpu.plonk.prover import create_proof as j_create_proof
 from halo2_tpu.plonk.verifier import verify_proof as j_verify_proof
 from halo2_tpu.poly.commitment import Params as JParams
-from halo2_tpu.transcript import Blake2bWrite as JBlake2bWrite
+from tests.data.gen_torch_golden import golden_of, params_bytes, vk_hash
 from tests.test_e2e import K, SimpleCircuit as JSimpleCircuit, expected_out
 
 from halo2_tpu_torch import convert
@@ -45,35 +51,40 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_golden_proof.json")
 
 
-def _params_bytes(params) -> bytes:
-    buf = io.BytesIO()
-    params.write(buf)
-    return buf.getvalue()
+class _Proofs(dict):
+    """The port's proofs with one key, each made at its first use."""
+
+    def __init__(self, params, pk):
+        super().__init__()
+        self._params, self._pk = params, pk
+
+    def __missing__(self, seed):
+        proof = self[seed] = create_proof(
+            self._params, self._pk, SimpleCircuit(A, B), [[OUT]], seed=seed,
+            device="cpu")
+        return proof
 
 
-def _vk_hash(vk, transcript_cls) -> bytes:
-    """The transcript state after absorbing the vk, squeezed to bytes."""
-    t = transcript_cls()
-    vk.hash_into(t)
-    return t.squeeze_challenge().to_bytes(32, "little")
+@pytest.fixture(scope="module")
+def golden():
+    """The JAX package's bytes for this circuit and these seeds."""
+    with open(GOLDEN) as fh:
+        return json.load(fh)
 
 
 @pytest.fixture(scope="module")
 def jax_side():
     params = JParams.unsafe_setup(K, seed=PARAMS_SEED)
     vk, pk = j_keygen(params, JSimpleCircuit())
-    proofs = {s: j_create_proof(params, pk, JSimpleCircuit(A, B), [[OUT]],
-                                seed=s) for s in SEEDS}
-    return {"params": params, "vk": vk, "pk": pk, "proofs": proofs}
+    return {"params": params, "vk": vk, "pk": pk}
 
 
 @pytest.fixture(scope="module")
 def port_side():
     params = Params.unsafe_setup(K, seed=PARAMS_SEED, device="cpu")
     vk, pk = keygen(params, SimpleCircuit(), device="cpu")
-    proofs = {s: create_proof(params, pk, SimpleCircuit(A, B), [[OUT]],
-                              seed=s, device="cpu") for s in SEEDS}
-    return {"params": params, "vk": vk, "pk": pk, "proofs": proofs}
+    return {"params": params, "vk": vk, "pk": pk,
+            "proofs": _Proofs(params, pk)}
 
 
 @pytest.fixture(scope="module")
@@ -99,27 +110,26 @@ def carried(jax_side):
     return {"params": params, "vk": vk, "pk": pk}
 
 
-def test_params_bytes_equal(jax_side, port_side):
-    assert _params_bytes(port_side["params"]) == \
-        _params_bytes(jax_side["params"])
+def test_params_bytes_equal(golden, port_side):
+    assert params_bytes(port_side["params"]).hex() == golden["params_hex"]
 
 
 def test_params_read_round_trip(port_side):
-    blob = _params_bytes(port_side["params"])
+    blob = params_bytes(port_side["params"])
     again = Params.read(io.BytesIO(blob), device="cpu")
-    assert _params_bytes(again) == blob
+    assert params_bytes(again) == blob
     assert torch.equal(again.g, port_side["params"].g)
 
 
-def test_pinned_vk_and_transcript_hash_equal(jax_side, port_side):
-    assert port_side["vk"].pinned() == jax_side["vk"].pinned()
-    assert _vk_hash(port_side["vk"], Blake2bWrite) == \
-        _vk_hash(jax_side["vk"], JBlake2bWrite)
+def test_pinned_vk_and_transcript_hash_equal(golden, port_side):
+    assert port_side["vk"].pinned() == golden["pinned_vk"]
+    assert vk_hash(port_side["vk"], Blake2bWrite).hex() == \
+        golden["vk_hash_hex"]
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_proof_bytes_equal_with_own_key(jax_side, port_side, seed):
-    assert port_side["proofs"][seed] == jax_side["proofs"][seed]
+def test_proof_bytes_equal_with_own_key(golden, port_side, seed):
+    assert port_side["proofs"][seed].hex() == golden["proofs"][str(seed)]
 
 
 def test_proofs_differ_between_seeds(port_side):
@@ -138,19 +148,20 @@ def test_carried_key_state_equals_own_key(port_side, carried):
     assert carried["vk"].pinned() == port_side["vk"].pinned()
 
 
-def test_proof_bytes_equal_with_carried_key(jax_side, carried):
+def test_proof_bytes_equal_with_carried_key(golden, carried):
     """One seed: the carried state is shown equal to the port's own word
     for word above, and every further proof costs this file its time."""
     seed = SEEDS[1]
     proof = create_proof(carried["params"], carried["pk"],
                          SimpleCircuit(A, B), [[OUT]], seed=seed,
                          device="cpu")
-    assert proof == jax_side["proofs"][seed]
+    assert proof.hex() == golden["proofs"][str(seed)]
 
 
-def test_each_verifier_accepts_the_others_proof(jax_side, port_side):
+def test_each_verifier_accepts_the_others_proof(jax_side, golden, port_side):
     pv = port_side["params"].verifier(1)
-    assert verify_proof(pv, port_side["vk"], [[OUT]], jax_side["proofs"][0])
+    jax_proof = bytes.fromhex(golden["proofs"][str(SEEDS[0])])
+    assert verify_proof(pv, port_side["vk"], [[OUT]], jax_proof)
     jpv = jax_side["params"].verifier(1)
     assert j_verify_proof(jpv, jax_side["vk"], [[OUT]],
                           port_side["proofs"][1])
@@ -173,15 +184,16 @@ def test_tampered_proof_rejected(port_side):
     assert not ok
 
 
-def test_golden_file_matches_live_jax_proofs(jax_side):
-    """tests/data/torch_golden_proof.json (what chip_smoke.py reproduces on
-    the card) against the JAX package as it is now."""
-    with open(GOLDEN) as fh:
-        golden = json.load(fh)
+def test_golden_file_matches_live_jax_proofs(jax_side, golden):
+    """tests/data/torch_golden_proof.json (what the tests above and
+    chip_smoke.py on the card hold the port to) against the JAX package as
+    it is now: SRS bytes, pinned vk, vk hash and one proof per seed."""
     assert (golden["k"], golden["params_seed"], golden["a"], golden["b"]) \
         == (K, PARAMS_SEED, A, B)
-    assert golden["proofs"] == {str(s): jax_side["proofs"][s].hex()
-                                for s in SEEDS}
+    jp, jpk = jax_side["params"], jax_side["pk"]
+    proofs = {s: j_create_proof(jp, jpk, JSimpleCircuit(A, B), [[OUT]],
+                                seed=s) for s in SEEDS}
+    assert golden == golden_of(jp, jax_side["vk"], proofs)
 
 
 class _LookupCircuit(Circuit):
