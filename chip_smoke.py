@@ -8,12 +8,19 @@ Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
   kernels  holds every kernel against its plain PyTorch version on the card
            (exact equality of the limb words: the tolerance is zero), at the
            shapes the k-row proof gives it and at ragged ones, and times it
-           with CUDA events beside its bound;
+           with CUDA events beside its bound: `ms` around 20 launches from
+           Python, `device_ms` from the same 20 launches replayed from a
+           CUDA graph.  The chain entry points (pow / inv, the prefix-product
+           scan, the Horner combine, the scalar ladder) are held to their
+           composed plain versions at the proof's shapes and at edge cases,
+           and each public function is shown to make its one launch (three
+           for the scan);
   golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
            its seeds and compares the proof bytes;
   prove    unsafe_setup -> keygen -> create_proof -> verify_proof for a
            row-filling chain of mul gates at 2^k rows, with every kernel's
-           launch count set to 0 just before and read just after; a proof
+           launch count set to 0 just before and read just after (all
+           counters printed, with the K1 and K4 family totals); a proof
            with one byte flipped must be rejected;
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
@@ -45,8 +52,9 @@ from halo2_tpu_torch.curves import cuda_point, g1
 from halo2_tpu_torch.fields import cuda_ops
 from halo2_tpu_torch.fields.bn254 import fq, fr
 from halo2_tpu_torch.fields.limbs import N_LIMBS, limbs_to_ints
+from halo2_tpu_torch.msm import msm
 from halo2_tpu_torch.msm import sorted as msm_sorted
-from halo2_tpu_torch.msm.msm import SORT_BLOCK
+from halo2_tpu_torch.msm.msm import SORT_BLOCK, window_bits_for
 from halo2_tpu_torch.ntt import dft_matmul as dm
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
@@ -62,14 +70,55 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_proof.json")
 DFT_PROBE = os.path.join(ROOT, "examples", "torch_mxu_dft_probe.py")
 
-# 32-bit integer operations of one field operation, as the kernels do it:
-# a CIOS Montgomery product is 8 rows of (8 a*b_i + 8 m*p) multiply-adds
-# plus the 8 products for m; an add or sub is two 8-word carry chains.
-OPS_MUL = 2 * (2 * 8 * 8 + 8)
+# 32-bit integer multiply-add-class instructions of one field operation, as
+# the kernels issue them (csrc/field.cuh): a CIOS Montgomery product runs,
+# for each of its 8 words, two rows of 8 low and 8 high multiply-adds
+# (mad_row) and one product for m; an add or sub is two 8-word carry chains
+# (integer additions, counted at the same rate).
+MADS_MUL = 8 * (2 * 16 + 1)
 OPS_ADD = 16
 # field products / additions of the point formulas (curves/formulas.py)
 POINT_OPS = {"add": (12, 29), "add_mixed": (11, 25), "double": (8, 17)}
 WORD = 4
+
+
+def _bounds(n_bytes, muls, adds=0) -> dict:
+    """The bound of `muls` field products and `adds` field additions on
+    n_bytes, at the card's integer rate."""
+    bound, by = _bound(n_bytes, muls * MADS_MUL + adds * OPS_ADD)
+    return {"bound_ms": bound, "bound_by": by}
+
+
+def _entry(name, source, replaces, variants, shape) -> dict:
+    """A kernels-line entry whose numbers are those of its first variant."""
+    head = variants[0]
+    e = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces,
+         "max_abs_err": max(v["max_abs_err"] for v in variants),
+         "library_ms": None, "shape": shape, "variants": variants}
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by"):
+        e[key] = head[key]
+    return e
+
+
+def _times(fn, plain_ms, reps=20) -> dict:
+    return {"ms": _time_cuda(fn, reps),
+            "device_ms": profiling.time_graph(fn, reps), "plain_ms": plain_ms}
+
+
+def _launches_of(fn) -> dict:
+    """The launches fn makes, by counter (the counters are 0 before)."""
+    _reset_counts()
+    fn()
+    counts = {**cuda_ops.launch_counts, **cuda_point.launch_counts}
+    _reset_counts()
+    return {k: v for k, v in counts.items() if v}
+
+
+def _expect_launches(what, fn, want: dict):
+    got = _launches_of(fn)
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
 
 
 def _rand_field(F, shape, gen, specials=True):
@@ -113,20 +162,15 @@ def phase_env(out):
     nvcc = subprocess.run([build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     built = build.build_all()
-    regs = {}
-    for name, log in built["logs"].items():
-        fn = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                fn = line.split("'")[1] if "'" in line else line
-            elif "Used" in line and "registers" in line and fn:
-                regs[fn] = line.split("Used", 1)[1].strip()
-                fn = None
+    ptxas = {}
+    for log in built["logs"].values():
+        ptxas.update(build.ptxas_usage(log))
     out["smi"] = smi.stdout.strip().splitlines()[0]
     env = {"nvidia_smi": out["smi"], "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "nvcc": nvcc.stdout.strip().splitlines()[-2:],
-           "build_seconds": round(built["seconds"], 2), "ptxas": regs}
+           "build_seconds": round(built["seconds"], 2),
+           "int_rate": profiling.card_int_rate(), "ptxas": ptxas}
     print(json.dumps({"env": env}), flush=True)
 
 
@@ -142,18 +186,21 @@ def _shapes(k: int):
         ext_k += 1
     n, ext_n = 1 << k, 1 << ext_k
     block = min(SORT_BLOCK, n)
-    windows = msm_sorted.num_windows_for(254)
+    c = window_bits_for(block)
+    windows = msm_sorted.num_windows_for(254, c)
+    # the widest commitment batch (one msm_many, one Horner lane a column):
+    # keygen's fixed columns (selectors included) or permutation columns,
+    # the advice, the instance, or the quotient's pieces; the permutation's
+    # grand products are at most one a permutation column
+    lanes = max(cs.num_fixed_columns + cs.num_selectors,
+                len(cs.permutation.columns), cs.num_advice_columns,
+                cs.num_instance_columns, qd)
     return {"n": n, "ext_n": ext_n, "ext_k": ext_k,
-            "scan": windows * block}
+            "scan": windows * block, "windows": windows, "c": c,
+            "horner_lanes": lanes}
 
 
-def phase_kernels(k: int, device) -> list:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1234)
-    sh = _shapes(k)
-    entries = []
-
-    # ---- K1: elementwise add / sub / mul, Fr and Fq --------------------
+def _k1_binop(sh, gen, device) -> dict:
     variants = []
     for F in (fr(device), fq(device)):
         for op in ("add", "sub", "mul"):
@@ -169,29 +216,29 @@ def phase_kernels(k: int, device) -> list:
                     cuda_ops.binop(op, F, a, b[:, 0]),
                     cuda_ops.plain_binop(
                         op, F, a, b[:, :1].expand(N_LIMBS, n).contiguous())))
+                # every other element of each operand, read in place
+                h = n // 2
+                worst = max(worst, _max_err(
+                    cuda_ops.binop(op, F, a[:, :2 * h:2], b[:, 1::2]),
+                    cuda_ops.plain_binop(op, F, a[:, :2 * h:2].contiguous(),
+                                         b[:, 1::2].contiguous())))
             n = sh["ext_n"]
             a, b = _rand_field(F, (n,), gen), _rand_field(F, (n,), gen)
-            ms = _time_cuda(lambda: cuda_ops.binop(op, F, a, b), 20)
-            plain_ms = _time_cuda(
-                lambda: cuda_ops.plain_binop(op, F, a, b), 2)
-            bound_ms, by = _bound(3 * N_LIMBS * WORD * n,
-                                  (OPS_MUL if op == "mul" else OPS_ADD) * n)
+            t = _times(lambda: cuda_ops.binop(op, F, a, b),
+                       _time_cuda(lambda: cuda_ops.plain_binop(op, F, a, b),
+                                  2))
+            muls, adds = (1, 0) if op == "mul" else (0, 1)
             variants.append({"variant": f"{op}/{F.name}", "n": n,
-                             "max_abs_err": worst, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": by})
-    head = next(v for v in variants if v["variant"] == "mul/Fr")
-    entries.append({
-        "name": "field_binop", "route": "cuda",
-        "source": "halo2_tpu_torch/csrc/field_kernels.cu",
-        "replaces": "halo2_tpu/fields/pallas_ops.py:65",
-        "max_abs_err": max(v["max_abs_err"] for v in variants),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "shape": f"mul/Fr (16, {head['n']})",
-        "variants": variants})
+                             "max_abs_err": worst, **t,
+                             **_bounds(3 * N_LIMBS * WORD * n, muls * n,
+                                       adds * n)})
+    variants.sort(key=lambda v: v["variant"] != "mul/Fr")
+    return _entry("field_binop", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/pallas_ops.py:65", variants,
+                  f"mul/Fr (16, {sh['ext_n']})")
 
-    # ---- K2: butterfly --------------------------------------------------
+
+def _k2_butterfly(sh, gen, device) -> dict:
     F = fr(device)
     worst = 0
     n1 = 1 << ((sh["ext_k"] + 1) // 2)
@@ -209,21 +256,19 @@ def phase_kernels(k: int, device) -> list:
     tw = _rand_field(F, (half // rep,), gen)
     lo, hi = x[:, :, 0, :], x[:, :, 1, :]
     n = mid * half
-    ms = _time_cuda(lambda: cuda_ops.butterfly(F, lo, hi, tw, rep), 20)
-    plain_ms = _time_cuda(
-        lambda: cuda_ops.plain_butterfly(F, lo, hi, tw, rep), 2)
-    bound_ms, by = _bound((4 * n + half // rep) * N_LIMBS * WORD,
-                          (OPS_MUL + 2 * OPS_ADD) * n)
-    entries.append({
-        "name": "ntt_butterfly", "route": "cuda",
-        "source": "halo2_tpu_torch/csrc/field_kernels.cu",
-        "replaces": "halo2_tpu/fields/pallas_ops.py:115",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-        "shape": f"lo, hi (16, {mid}, {half}), tw (16, {half // rep})"})
+    t = _times(lambda: cuda_ops.butterfly(F, lo, hi, tw, rep), _time_cuda(
+        lambda: cuda_ops.plain_butterfly(F, lo, hi, tw, rep), 2))
+    v = {"variant": "Fr", "max_abs_err": worst, **t,
+         **_bounds((4 * n + half // rep) * N_LIMBS * WORD, n, 2 * n)}
+    return _entry("ntt_butterfly", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/pallas_ops.py:115", [v],
+                  f"lo, hi (16, {mid}, {half}), tw (16, {half // rep})")
 
-    # ---- K3: shared-table product -----------------------------------------
+
+def _k3_mul_tiled(sh, gen, device) -> dict:
+    F = fr(device)
     worst = 0
+    cols = 3
     cases = [(cols, sh["ext_n"]), (sh["ext_n"] // 4, 4), (7, 1000), (1, 1)]
     for mid, kk in cases:
         a = _rand_field(F, (mid, kk), gen)
@@ -233,22 +278,107 @@ def phase_kernels(k: int, device) -> list:
     mid, kk = cases[0]
     a, t = _rand_field(F, (mid, kk), gen), _rand_field(F, (kk,), gen)
     n = mid * kk
-    ms = _time_cuda(lambda: cuda_ops.mul_tiled(F, a, t), 20)
-    plain_ms = _time_cuda(lambda: cuda_ops.plain_mul_tiled(F, a, t), 2)
-    bound_ms, by = _bound((2 * n + kk) * N_LIMBS * WORD, OPS_MUL * n)
-    entries.append({
-        "name": "mul_tiled", "route": "cuda",
-        "source": "halo2_tpu_torch/csrc/field_kernels.cu",
-        "replaces": "halo2_tpu/fields/pallas_ops.py:149",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-        "shape": f"a (16, {mid}, {kk}), t (16, {kk})"})
+    tm = _times(lambda: cuda_ops.mul_tiled(F, a, t),
+                _time_cuda(lambda: cuda_ops.plain_mul_tiled(F, a, t), 2))
+    v = {"variant": "Fr", "max_abs_err": worst, **tm,
+         **_bounds((2 * n + kk) * N_LIMBS * WORD, n)}
+    return _entry("mul_tiled", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/pallas_ops.py:149", [v],
+                  f"a (16, {mid}, {kk}), t (16, {kk})")
 
-    # ---- K4: point add / add_mixed / double ----------------------------
+
+def _pow_products(e: int) -> int:
+    """Products of square and multiply for the exponent e."""
+    return 0 if e == 0 else e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def _field_pow(sh, gen, device) -> dict:
+    """pow_static / inv: one launch, against the composed plain loop."""
+    variants = []
+    # the proof's shape (one element: batch_inverse's total) and 2^n
+    for F, n in ((fr(device), 1), (fr(device), sh["n"]), (fq(device), 1)):
+        a = _rand_field(F, (n,), gen, specials=False)
+        a[0] |= 1                                # never zero
+        want, plain_ms = profiling.timed(
+            lambda: F.plain_pow_static(a, F.p - 2))
+        _expect_launches(f"{F.name}.inv", lambda: F.inv(a), {"pow": 1})
+        worst = _max_err(F.inv(a), want)
+        variants.append({
+            "variant": f"inv/{F.name} n={n}", "n": n, "max_abs_err": worst,
+            **_times(lambda: F.inv(a), plain_ms),
+            **_bounds(2 * N_LIMBS * WORD * n, _pow_products(F.p - 2) * n)})
+    # edge cases: 0, 1, p - 1 among the inputs, exponents 0, 1, 2, p - 2,
+    # one element, a batch of two dims
+    worst = 0
+    for F in (fr(device), fq(device)):
+        a = _rand_field(F, (1000,), gen)
+        for e in (0, 1, 2, 3, F.p - 2):
+            worst = max(worst, _max_err(F.pow_static(a, e),
+                                        F.plain_pow_static(a, e)))
+        if F.decode(F.inv(a[:, :1])) != [0]:
+            raise AssertionError(f"{F.name}.inv(0) is not 0")
+        worst = max(worst, _max_err(F.inv(a[:, 5]),
+                                    F.plain_pow_static(a[:, 5:6], F.p - 2)
+                                    [:, 0]))
+        b = a[:, :24].reshape(N_LIMBS, 4, 6)
+        worst = max(worst, _max_err(F.inv(b),
+                                    F.plain_pow_static(b, F.p - 2)))
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    return _entry("field_pow", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/limbs.py:533 pow_static (lax.scan)",
+                  variants, "inv/Fr (16, 1)")
+
+
+def _scan_products(n: int) -> int:
+    """Products the three passes make on n elements."""
+    L, C, per = cuda_ops.scan_plan(n)
+    hs = sum(cuda_ops.SCAN_THREADS - off for off in
+             (1 << i for i in range(cuda_ops.SCAN_THREADS.bit_length() - 1)))
+    return (n - C) + 2 * C + hs + (n - L)
+
+
+def _field_scan(sh, gen, device) -> dict:
+    """prefix_mul: three launches, against the composed blocked scan."""
+    variants = []
+    F = fr(device)
+    for n in (sh["n"], 4 * sh["n"]):
+        a = _rand_field(F, (n,), gen)
+        for reverse in (False, True):
+            want, plain_ms = profiling.timed(
+                lambda: F.plain_prefix_mul(a, reverse))
+            _expect_launches("prefix_mul", lambda: F.prefix_mul(a, reverse),
+                             {"scan": 3})
+            variants.append({
+                "variant": f"{'reverse' if reverse else 'forward'} n={n}",
+                "n": n, "chunks": cuda_ops.scan_plan(n)[:2],
+                "max_abs_err": _max_err(F.prefix_mul(a, reverse), want),
+                **_times(lambda: F.prefix_mul(a, reverse), plain_ms),
+                **_bounds(2 * N_LIMBS * WORD * n, _scan_products(n))})
+    # edge cases: n = 1, an n no multiple of the chunk, n below and above
+    # the chunk count, Fq, a strided view (every other element, a column)
+    worst = 0
+    for F in (fr(device), fq(device)):
+        for n in (1, 2, 1000, 4096, 4097, sh["n"] + 123):
+            a = _rand_field(F, (n,), gen)
+            for reverse in (False, True):
+                worst = max(worst, _max_err(F.prefix_mul(a, reverse),
+                                            F.plain_prefix_mul(a, reverse)))
+        a = _rand_field(F, (2 * 5001,), gen)
+        for view in (a[:, ::2], a[:, 7:8]):
+            for reverse in (False, True):
+                worst = max(worst, _max_err(
+                    F.prefix_mul(view, reverse),
+                    F.plain_prefix_mul(view.contiguous(), reverse)))
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    return _entry("field_scan", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/limbs.py:559 prefix_mul (two lax.scans)",
+                  variants, f"Fr (16, {sh['n']}), forward")
+
+
+def _k4_point_op(sh, gen, device, pts) -> dict:
     n = sh["n"]
-    aff_p, proj_p = _rand_points(n, gen, device)
-    aff_q, proj_q = _rand_points(n, gen, device)
-    ident = g1.identity((n,), device)
+    aff_p, proj_p, aff_q, proj_q, ident = pts
+    occupancy = cuda_point.occupancy()
     variants = []
     for op in ("add", "add_mixed", "double"):
         def args_for(p, q_proj, q_aff, sl):
@@ -273,27 +403,24 @@ def phase_kernels(k: int, device) -> list:
             worst = max(worst, _max_err(cuda_point.point_op(op, coords),
                                         cuda_point.plain_point_op(op, coords)))
         coords = args_for(proj_p, proj_q, aff_q, slice(0, n))
-        ms = _time_cuda(lambda: cuda_point.point_op(op, coords), 20)
-        plain_ms = _time_cuda(
-            lambda: cuda_point.plain_point_op(op, coords), 2)
         muls, adds = POINT_OPS[op]
-        bound_ms, by = _bound((len(coords) + 3) * N_LIMBS * WORD * n,
-                              (muls * OPS_MUL + adds * OPS_ADD) * n)
-        variants.append({"variant": op, "n": n, "max_abs_err": worst,
-                         "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": by})
-    head = variants[0]
-    entries.append({
-        "name": "point_op", "route": "cuda",
-        "source": "halo2_tpu_torch/csrc/point_kernels.cu",
-        "replaces": "halo2_tpu/curves/pallas_point.py:38",
-        "max_abs_err": max(v["max_abs_err"] for v in variants),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "shape": f"add, 6 x (16, {n})",
-        "variants": variants})
+        variants.append({
+            "variant": op, "n": n, "max_abs_err": worst,
+            "blocks_per_sm": occupancy[op],
+            **_times(lambda: cuda_point.point_op(op, coords), _time_cuda(
+                lambda: cuda_point.plain_point_op(op, coords), 2)),
+            **_bounds((len(coords) + 3) * N_LIMBS * WORD * n, muls * n,
+                      adds * n)})
+    e = _entry("point_op", "halo2_tpu_torch/csrc/point_kernels.cu",
+               "halo2_tpu/curves/pallas_point.py:38", variants,
+               f"add, 6 x (16, {n})")
+    e["blocks_per_sm"] = occupancy
+    return e
 
-    # ---- K5: packed mixed add (the MSM scan step) -----------------------
+
+def _k5_packed(sh, gen, device, pts) -> dict:
+    n = sh["n"]
+    aff_p, proj_p, aff_q, proj_q, ident = pts
     worst = 0
     scan = min(sh["scan"], n)
     for m, carry in ((scan, proj_p), (1000, proj_p), (1, proj_p),
@@ -318,21 +445,138 @@ def phase_kernels(k: int, device) -> list:
     worst = max(worst, _max_err(
         cuda_point.add_mixed_packed(c, packed, sign),
         cuda_point.plain_add_mixed_packed(c, packed, sign)))
-    ms = _time_cuda(lambda: cuda_point.add_mixed_packed(c, packed, sign), 20)
-    plain_ms = _time_cuda(
-        lambda: cuda_point.plain_add_mixed_packed(c, packed, sign), 2)
     muls, adds = POINT_OPS["add_mixed"]
     m = sh["scan"]
-    bound_ms, by = _bound((7 * N_LIMBS + 1) * WORD * m,
-                          (muls * OPS_MUL + (adds + 1) * OPS_ADD) * m)
-    entries.append({
-        "name": "add_mixed_packed", "route": "cuda",
-        "source": "halo2_tpu_torch/csrc/point_kernels.cu",
-        "replaces": "halo2_tpu/curves/pallas_point.py:73",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-        "shape": f"carry 3 x (16, {m}), packed (16, {m}), sign ({m},)"})
+    v = {"variant": "add_mixed_packed", "max_abs_err": worst,
+         **_times(lambda: cuda_point.add_mixed_packed(c, packed, sign),
+                  _time_cuda(lambda: cuda_point.plain_add_mixed_packed(
+                      c, packed, sign), 2)),
+         **_bounds((7 * N_LIMBS + 1) * WORD * m, muls * m, (adds + 1) * m)}
+    return _entry("add_mixed_packed", "halo2_tpu_torch/csrc/point_kernels.cu",
+                  "halo2_tpu/curves/pallas_point.py:73", [v],
+                  f"carry 3 x (16, {m}), packed (16, {m}), sign ({m},)")
 
+
+def _horner_bounds(lanes, W, c, tail) -> dict:
+    dm_, da = POINT_OPS["double"]
+    am, aa = POINT_OPS["add"]
+    chain = (W - 1) * c + tail
+    return _bounds(3 * N_LIMBS * WORD * lanes * (W + 1),
+                   lanes * (chain * dm_ + (W - 1) * am),
+                   lanes * (chain * da + (W - 1) * aa))
+
+
+def _point_horner(sh, gen, device, pts) -> dict:
+    """The Horner combine: one launch, against the composed loop."""
+    aff_p, proj_p, aff_q, proj_q, ident = pts
+    lanes, W, c = sh["horner_lanes"], sh["windows"], sh["c"]
+    pick = lambda m: tuple(x[:, :m] for x in proj_p)  # noqa: E731
+
+    def totals_of(lanes_, W_):
+        t = tuple(x.reshape(N_LIMBS, lanes_, W_).contiguous()
+                  for x in pick(lanes_ * W_))
+        return t
+    variants = []
+    # the proof's widest combine, and the Abel sum's M * E_M doublings
+    # (W = 1, c = 0, log2(2^(c-1)) = c - 1 doublings on every window)
+    for name, tot, cb, tail in (
+            (f"combine lanes={lanes} W={W} c={c}", totals_of(lanes, W), c, 0),
+            (f"abel lanes={sh['windows']} doublings={c - 1}",
+             totals_of(sh["windows"], 1), 0, c - 1)):
+        want, plain_ms = profiling.timed(
+            lambda: g1.plain_horner(tot, cb, tail))
+        got = g1.horner(tot, cb, tail)
+        L_, W_ = cuda_point.horner_shape(tot[0].shape)
+        variants.append({
+            "variant": name, "max_abs_err": _max_err(got, want),
+            **_times(lambda: cuda_point.horner(tot, cb, tail), plain_ms),
+            **_horner_bounds(L_, W_, cb, tail)})
+    _expect_launches("_combine_windows",
+                     lambda: msm._combine_windows(totals_of(lanes, W), c),
+                     {"horner": 1})
+    # edge cases: identity lanes and windows (an all-identity lane, zero
+    # windows at the top, the middle and the bottom), W = 1, one lane,
+    # lanes of two dims, the window axis strided
+    worst = 0
+    tot = [x.clone() for x in totals_of(4, W)]
+    for lane, ws in ((0, range(W)), (1, (W - 1,)), (2, (W // 2,)), (3, (0,))):
+        for w in ws:
+            for x, v in zip(tot, ident):
+                x[:, lane, w] = v[:, 0]
+    cases = [(tuple(tot), c, 0), (tuple(tot), 3, 2), (totals_of(1, 1), 5, 0),
+             (totals_of(1, 2), 4, 0),
+             (tuple(x.reshape(N_LIMBS, 2, 2, 3) for x in totals_of(4, 3)),
+              4, 1),
+             (tuple(x[:, :, ::2] for x in totals_of(2, 6)), 2, 0)]
+    for t, cb, tail in cases:
+        worst = max(worst, _max_err(cuda_point.horner(t, cb, tail),
+                                    g1.plain_horner(t, cb, tail)))
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    return _entry("point_horner", "halo2_tpu_torch/csrc/point_kernels.cu",
+                  "halo2_tpu/msm/msm.py:152 _combine_windows (lax.scan)",
+                  variants, f"3 x (16, {lanes}, {W}), c = {c}")
+
+
+def _rand_scalars(n, gen, device):
+    """(16, n) standard-form limbs of random 254-bit scalars."""
+    s = torch.randint(0, 1 << 16, (N_LIMBS, n), dtype=torch.int32,
+                      device=device, generator=gen)
+    s[N_LIMBS - 1] &= 0x3FFF
+    return s
+
+
+def _point_ladder(sh, gen, device, pts) -> dict:
+    """scalar_mul: one launch, against the composed ladder."""
+    aff_p = pts[0]
+    n = sh["n"]
+    s = _rand_scalars(n, gen, device)
+    want, plain_ms = profiling.timed(lambda: g1.plain_scalar_mul(aff_p, s))
+    _expect_launches("scalar_mul", lambda: g1.scalar_mul(aff_p, s),
+                     {"ladder": 1})
+    bits = sum(bin(v).count("1") for v in limbs_to_ints(s.cpu().numpy()))
+    dm_, da = POINT_OPS["double"]
+    am, aa = POINT_OPS["add"]
+    v = {"variant": f"n={n}", "n": n,
+         "max_abs_err": _max_err(g1.scalar_mul(aff_p, s), want),
+         **_times(lambda: g1.scalar_mul(aff_p, s), plain_ms, reps=5),
+         **_bounds(6 * N_LIMBS * WORD * n, 255 * n * dm_ + bits * am,
+                   255 * n * da + bits * aa)}
+    # edge cases: scalars 0, 1, all 256 bits set, one point, a ragged batch
+    m = 1000
+    s = _rand_scalars(m, gen, device)
+    s[:, 0] = 0
+    s[:, 1] = 0
+    s[0, 1] = 1
+    s[:, 2] = 0xFFFF
+    p = tuple(c[:, :m] for c in aff_p)
+    worst = max(_max_err(g1.scalar_mul(p, s), g1.plain_scalar_mul(p, s)),
+                _max_err(g1.scalar_mul(tuple(c[:, 7:8] for c in p),
+                                       s[:, 2:3]),
+                         g1.plain_scalar_mul(tuple(c[:, 7:8] for c in p),
+                                             s[:, 2:3])))
+    if not bool(g1.is_identity(g1.scalar_mul(p, s))[0]):
+        raise AssertionError("0 * P is not the identity")
+    v["max_abs_err"] = max(v["max_abs_err"], worst)
+    return _entry("point_ladder", "halo2_tpu_torch/csrc/point_kernels.cu",
+                  "halo2_tpu/curves/g1.py:141 scalar_mul (lax.scan)", [v],
+                  f"(x, y) 2 x (16, {n}), scalars (16, {n})")
+
+
+def phase_kernels(k: int, device) -> list:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    sh = _shapes(k)
+    n = sh["n"]
+    aff_p, proj_p = _rand_points(n, gen, device)
+    aff_q, proj_q = _rand_points(n, gen, device)
+    pts = (aff_p, proj_p, aff_q, proj_q, g1.identity((n,), device))
+    entries = [_k1_binop(sh, gen, device), _k2_butterfly(sh, gen, device),
+               _k3_mul_tiled(sh, gen, device), _field_pow(sh, gen, device),
+               _field_scan(sh, gen, device),
+               _k4_point_op(sh, gen, device, pts),
+               _k5_packed(sh, gen, device, pts),
+               _point_horner(sh, gen, device, pts),
+               _point_ladder(sh, gen, device, pts)]
     for e in entries:
         if e["max_abs_err"] != 0:
             raise AssertionError(
@@ -372,6 +616,12 @@ def _reset_counts():
             counts[key] = 0
 
 
+# the kernel families of the TPU kernels K1 and K4, by launch counter
+FAMILIES = {"K1": ("binop", "pow", "scan"),
+            "K4": ("point_op", "horner", "ladder")}
+FAMILY_LIMITS_K16 = {"K1": 6000, "K4": 1500}
+
+
 def phase_prove(k: int, seed: int, device) -> dict:
     circuit = MulChainCircuit(MulChainCircuit.steps_for(k), a=3, b=5)
     out = circuit.expected_out()
@@ -389,6 +639,8 @@ def phase_prove(k: int, seed: int, device) -> dict:
     phases("create_proof")
     launches = {**cuda_ops.launch_counts, **cuda_point.launch_counts}
     launches = dict(launches)                # the main path ends here
+    families = {fam: sum(launches[c] for c in counters)
+                for fam, counters in FAMILIES.items()}
     pv = params.verifier(1)
     ok = verify_proof(pv, vk, [[out]], proof)
     phases("verify_proof")
@@ -417,9 +669,15 @@ def phase_prove(k: int, seed: int, device) -> dict:
         "seconds": {n_: round(s, 3) for n_, s in phases.seconds.items()},
         "create_proof_seconds": {n_: round(s, 3) for n_, s
                                  in prover_phases.seconds.items()},
-        "launches": launches, "counters": dict(profiling.counters),
+        "launches": launches, "launches_by_family": families,
+        "counters": dict(profiling.counters),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}}),
         flush=True)
+    if k == 16:
+        for fam, most in FAMILY_LIMITS_K16.items():
+            if families[fam] > most:
+                raise AssertionError(f"{fam} made {families[fam]} launches "
+                                     f"at k = 16, more than {most}")
     return launches
 
 
@@ -487,6 +745,7 @@ def phase_dft(device, smi: str):
         r = results[m]
         return {"variant": f"m={m}", "B": DFT_B,
                 "ms": r["ms"]["epilogue_k6"],
+                "device_ms": r["ms"]["epilogue_k6_device"],
                 "plain_ms": r["ms"]["epilogue_plain"],
                 "bound_ms": r["bound_ms"]["epilogue_k6"],
                 "bound_by": r["bound_by"]["epilogue_k6"],
@@ -497,7 +756,8 @@ def phase_dft(device, smi: str):
         "name": "dft_epilogue", "route": "cuda",
         "source": "halo2_tpu_torch/csrc/dft_kernels.cu",
         "replaces": "examples/mxu_dft_probe.py:175",
-        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "max_abs_err": worst, "ms": head["ms"],
+        "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "products_ms": head["products_ms"],
         "shape": f"lo, hi ({DFT_SIZES[0] * dm.NB}, {DFT_B}) float32 -> "
@@ -509,8 +769,10 @@ def phase_dft(device, smi: str):
 
 
 LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
-              "mul_tiled": "mul_tiled", "point_op": "point_op",
+              "mul_tiled": "mul_tiled", "field_pow": "pow",
+              "field_scan": "scan", "point_op": "point_op",
               "add_mixed_packed": "add_mixed_packed",
+              "point_horner": "horner", "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
 ALL_PHASES = "env,kernels,golden,prove,dft"
 

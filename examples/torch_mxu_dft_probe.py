@@ -33,7 +33,7 @@ from halo2_tpu_torch.ntt import dft_matmul as dm  # noqa: E402
 from halo2_tpu_torch.ntt.ntt import NTT  # noqa: E402
 from halo2_tpu_torch.utils.profiling import (BF16_FLOP_PER_S,  # noqa: E402
                                             bound_ms, max_abs_err,
-                                            time_cuda)
+                                            time_cuda, time_graph)
 
 # 32-bit integer operations K6 does for one output element: 64 float ->
 # int conversions, 64 to combine the nibble sums into bytes, 96 to place
@@ -129,6 +129,8 @@ def measure(m: int, B: int, x: torch.Tensor, mats, reps: int = 10) -> dict:
         "products": time_cuda(lambda: dm.dft_products(M_lo, M_hi, xk),
                               reps),
         "epilogue_k6": time_cuda(lambda: dm.dft_epilogue(lo, hi, m), reps),
+        "epilogue_k6_device": time_graph(
+            lambda: dm.dft_epilogue(lo, hi, m), reps),
         "epilogue_plain": time_cuda(
             lambda: dm.plain_dft_epilogue(lo, hi, m), 2),
         "ntt_cios": time_cuda(lambda: ntt.forward(xt), reps),

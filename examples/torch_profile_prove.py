@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where one halo2_tpu_torch proof spends its time on the card.
 
-    python3 examples/torch_profile_prove.py [--k K]
+    python3 examples/torch_profile_prove.py [--k K] [--show TEXT]
 
 Sets up and keys the row-filling MulChainCircuit at 2^K rows, proves once
 to warm up, then proves again under torch.profiler (CPU + CUDA activities)
 and prints one JSON object: the proof's wall seconds, the summed device
-time of all kernels, the device's busy share of the wall time, and the ten
-kernels with the most device time.  Needs one CUDA device.
+time of all kernels, the device's busy share of the wall time, the ten
+kernels with the most device time, and with --show every kernel whose name
+contains TEXT (e.g. `scan_` for the three passes of the prefix-product
+scan).  Needs one CUDA device.
 """
 
 import argparse
@@ -31,6 +33,8 @@ from halo2_tpu_torch.poly.commitment import Params  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k", type=int, default=16)
+    ap.add_argument("--show", default=None,
+                    help="also list every kernel whose name contains this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_prove: no CUDA device", file=sys.stderr)
@@ -61,13 +65,18 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(json.dumps({
-        "card": smi.stdout.strip().splitlines()[0], "k": args.k,
-        "create_proof_wall_s": round(wall, 4),
-        "device_time_s": round(device_s, 4),
-        "device_busy_share": round(device_s / wall, 4),
-        "top_kernels": [{"name": n[:80], "device_ms": round(t / 1e3, 3),
-                         "calls": c} for n, t, c in rows[:10]]}))
+
+    def listed(picked):
+        return [{"name": n[:80], "device_ms": round(t / 1e3, 3), "calls": c}
+                for n, t, c in picked]
+    out = {"card": smi.stdout.strip().splitlines()[0], "k": args.k,
+           "create_proof_wall_s": round(wall, 4),
+           "device_time_s": round(device_s, 4),
+           "device_busy_share": round(device_s / wall, 4),
+           "top_kernels": listed(rows[:10])}
+    if args.show:
+        out["shown_kernels"] = listed(r for r in rows if args.show in r[0])
+    print(json.dumps(out))
     return 0
 
 

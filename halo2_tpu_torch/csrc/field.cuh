@@ -31,6 +31,12 @@ static __constant__ uint32_t MODULUS[2][NW] = {
      0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u}};
 // -p^{-1} mod 2^32
 static __constant__ uint32_t MONT_INV[2] = {0xefffffffu, 0xe4866389u};
+// R = 2^256 mod p: one in Montgomery form
+static __constant__ uint32_t ONE_MONT[2][NW] = {
+    {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
+     0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+    {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+     0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}};
 
 struct Fe {
   uint32_t w[NW];
@@ -62,6 +68,14 @@ __device__ __forceinline__ Fe modulus() {
   Fe r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = MODULUS[F][k];
+  return r;
+}
+
+template <int F>
+__device__ __forceinline__ Fe one_mont() {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = ONE_MONT[F][k];
   return r;
 }
 

@@ -19,11 +19,12 @@ __device__ __forceinline__ Fe fq_add(const Fe& a, const Fe& b) {
 __device__ __forceinline__ Fe fq_sub(const Fe& a, const Fe& b) {
   return sub_mod<FQ>(a, b);
 }
-// not inlined: a point formula has about a dozen products, and one copy of
-// the CIOS body keeps the kernel's code size and compile time down
-__device__ __noinline__ Fe fq_mul(const Fe& a, const Fe& b) {
-  return mont_mul<FQ>(a, b);
-}
+// The field product of the formulas: not inlined, so the formulas hold one
+// copy of the CIOS body, with operands and result passed by value, in
+// registers (no stack frame).  Of the three forms measured on an H100 (this
+// one, the same by reference, and inlined everywhere; PERF.md section 6) it
+// was the fastest on five of the six point kernels.
+__device__ __noinline__ Fe fq_mul(Fe a, Fe b) { return mont_mul<FQ>(a, b); }
 
 __device__ __forceinline__ Fe mul_by_9(const Fe& a) {
   Fe a2 = fq_add(a, a);

@@ -12,18 +12,31 @@ place of one Pallas TPU kernel of halo2_tpu/curves/pallas_point.py:
                     x, rows 8-15 y), negate y where the sign is set, complete
                     mixed add onto the carry
 
-What bounds them on an H100: an add is 12 Montgomery products and some 29
-additions, about 3,700 32-bit integer operations, on 576 bytes (six
-coordinates read, three written).  Against 3.35 TB/s and some 33 T integer
-operations a second that is 172 ps of memory traffic and 111 ps of
-arithmetic a point: bound by device memory, though not by much.  One point
-per thread, all intermediates in registers (three 256-bit coordinates in,
-about a dozen live values: register pressure decides the occupancy); the
-field product is one non-inlined device function so the formulas stay
-compact.
+and two that run a chain of point operations inside one thread, where the
+JAX package compiles it into one `lax.scan`:
+
+  horner       `g1.horner`: the MSM's combine over windows (msm/msm.py
+               `_combine_windows`) and the Abel sum's M * E_M doublings
+               (msm/sorted.py), one launch
+  scalar_mul   the double-and-add ladder of `g1.scalar_mul`, one launch
+
+Their plain versions are the composed loops `g1.plain_horner` and
+`g1.plain_scalar_mul`, on `plain_point`.
+
+What bounds them on an H100: an add is 12 Montgomery products of 264
+integer multiply-adds and some 29 additions on 576 bytes (six coordinates
+read, three written).  Against 3.35 TB/s and 64 multiply-adds a clock on
+each of 132 SMs that is 172 ps of memory traffic and some 190 ps of
+arithmetic a point: about even, so occupancy decides.  One point per
+thread, all intermediates in registers (three 256-bit coordinates in, about
+a dozen live values); the field product is one non-inlined function with
+its operands in registers (csrc/point.cuh), which sets the registers, the
+stack and so the resident blocks.
+The chains are bound by one thread's latency when there are few lanes.
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version
-only for tensors on the CPU.  `launch_counts` counts launches.
+only for tensors on the CPU; the chain wrappers take CUDA tensors only.
+`launch_counts` counts launches.
 
 The plain versions follow curves/formulas.py operation for operation, but
 run independent field operations of one formula as ONE stacked call (an
@@ -34,6 +47,7 @@ narrow batches the cost of a plain field op is all per-call overhead.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,7 +59,8 @@ N_LIMBS = 16
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 
-launch_counts = {"point_op": 0, "add_mixed_packed": 0}
+launch_counts = {"point_op": 0, "add_mixed_packed": 0, "horner": 0,
+                 "ladder": 0}
 
 _N_IN = {"add": 6, "add_mixed": 5, "double": 3}
 
@@ -146,6 +161,14 @@ def plain_point_op(op: str, coords):
     return _PLAIN[op](S, tuple(coords[:3]), tuple(coords[3:]))
 
 
+def plain_point(op: str, *points):
+    """plain_point_op on point tuples of any one batch shape (16, *B):
+    add (p, q), add_mixed (p, q_affine) or double (p)."""
+    shape = points[0][0].shape
+    flat = [c.reshape(N_LIMBS, -1) for p in points for c in p]
+    return tuple(o.reshape(shape) for o in plain_point_op(op, flat))
+
+
 def unpack_xy(packed: torch.Tensor):
     """(16, N) packed words (two 16-bit limbs a word: rows 0-7 x, rows
     8-15 y; all 32 bits in use) -> ((16, N) x, (16, N) y)."""
@@ -168,20 +191,48 @@ def plain_add_mixed_packed(carry, packed_xy, sign):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    lib = build.load("point_kernels")
-    if not getattr(lib, "_h2_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.h2_point_add.argtypes = [vp] * 9 + [ll, vp]
-        lib.h2_point_add.restype = ci
-        lib.h2_point_add_mixed.argtypes = [vp] * 8 + [ll, vp]
-        lib.h2_point_add_mixed.restype = ci
-        lib.h2_point_double.argtypes = [vp] * 6 + [ll, vp]
-        lib.h2_point_double.restype = ci
-        lib.h2_add_mixed_packed.argtypes = [vp] * 8 + [ll, vp]
-        lib.h2_add_mixed_packed.restype = ci
-        lib._h2_typed = True
+def typed(lib):
+    """Set the argument and result types of the point kernels' entry
+    points on a loaded library; returns it."""
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.h2_point_add.argtypes = [vp] * 9 + [ll, vp]
+    lib.h2_point_add_mixed.argtypes = [vp] * 8 + [ll, vp]
+    lib.h2_point_double.argtypes = [vp] * 6 + [ll, vp]
+    lib.h2_add_mixed_packed.argtypes = [vp] * 8 + [ll, vp]
+    lib.h2_point_horner.argtypes = [vp] * 3 + [ll] * 4 + [ci] * 3 + \
+        [vp] * 4
+    lib.h2_point_ladder.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, vp, vp,
+                                    ll, vp]
+    lib.h2_point_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
+    for fn in (lib.h2_point_add, lib.h2_point_add_mixed, lib.h2_point_double,
+               lib.h2_add_mixed_packed, lib.h2_point_horner,
+               lib.h2_point_ladder, lib.h2_point_occupancy):
+        fn.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return typed(build.load("point_kernels"))
+
+
+OCCUPANCY_KERNELS = ("add", "add_mixed", "double", "add_mixed_packed",
+                     "horner", "ladder")
+
+
+def occupancy(lib=None) -> dict:
+    """Resident 128-thread blocks a multiprocessor holds, per point kernel
+    of `lib` (default: the package's build), from the CUDA occupancy
+    calculator."""
+    lib = lib or _lib()
+    out = {}
+    for which, name in enumerate(OCCUPANCY_KERNELS):
+        blocks = ctypes.c_int(0)
+        err = lib.h2_point_occupancy(which, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy of {name}: CUDA error {err}")
+        out[name] = blocks.value
+    return out
 
 
 def _check(name: str, x: torch.Tensor, shape, device):
@@ -195,6 +246,10 @@ def _check(name: str, x: torch.Tensor, shape, device):
 
 
 def _flat(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x as (lead, n) contiguous: a contiguous 2-D x as it is, else a
+    reshaped (and, if need be, copied) view."""
+    if x.dim() == 2 and x.is_contiguous():
+        return x
     return x.reshape(x.shape[0], n).contiguous()
 
 
@@ -212,7 +267,7 @@ def point_op(op: str, coords):
     if len(shape) < 1 or shape[0] != N_LIMBS:
         raise ValueError(f"{op}: expected (16, ...) limbs, got {tuple(shape)}")
     for c in coords:
-        _check(f"point {op}", c, shape, device)
+        _check("point_op", c, shape, device)
     n = 1
     for d in shape[1:]:
         n *= d
@@ -222,17 +277,13 @@ def point_op(op: str, coords):
         return tuple(o.reshape(shape) for o in out)
     if device.type != "cuda":
         raise ValueError(f"point {op}: unsupported device {device}")
-    out = tuple(torch.empty((N_LIMBS, n), dtype=torch.int32, device=device)
+    out = tuple(torch.empty(shape, dtype=torch.int32, device=device)
                 for _ in range(3))
-    fn = getattr(_lib(), "h2_point_" + op)
-    with torch.cuda.device(device):
-        err = fn(*[c.data_ptr() for c in flat],
-                 *[o.data_ptr() for o in out], n,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"point {op}: CUDA launch failed with error {err}")
+    build.launch(device, getattr(_lib(), "h2_point_" + op),
+                 *[c.data_ptr() for c in flat],
+                 *[o.data_ptr() for o in out], n)
     launch_counts["point_op"] += 1
-    return tuple(o.reshape(shape) for o in out)
+    return out
 
 
 def add_mixed_packed(carry, packed_xy: torch.Tensor, sign: torch.Tensor):
@@ -251,21 +302,90 @@ def add_mixed_packed(carry, packed_xy: torch.Tensor, sign: torch.Tensor):
         n *= d
     flat = [_flat(c, n) for c in carry]
     pk = _flat(packed_xy, n)
-    sg = sign.reshape(n).contiguous()
+    sg = sign if sign.dim() == 1 and sign.is_contiguous() \
+        else sign.reshape(n).contiguous()
     if device.type == "cpu":
         out = plain_add_mixed_packed(flat, pk, sg)
         return tuple(o.reshape(shape) for o in out)
     if device.type != "cuda":
         raise ValueError(f"add_mixed_packed: unsupported device {device}")
-    out = tuple(torch.empty((N_LIMBS, n), dtype=torch.int32, device=device)
+    out = tuple(torch.empty(shape, dtype=torch.int32, device=device)
                 for _ in range(3))
-    with torch.cuda.device(device):
-        err = _lib().h2_add_mixed_packed(
-            *[c.data_ptr() for c in flat], pk.data_ptr(), sg.data_ptr(),
-            *[o.data_ptr() for o in out], n,
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"add_mixed_packed: CUDA launch failed with error {err}")
+    build.launch(device, _lib().h2_add_mixed_packed,
+                 *[c.data_ptr() for c in flat], pk.data_ptr(), sg.data_ptr(),
+                 *[o.data_ptr() for o in out], n)
     launch_counts["add_mixed_packed"] += 1
-    return tuple(o.reshape(shape) for o in out)
+    return out
+
+
+def _cuda_only(name: str, device):
+    if device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, not "
+                         f"{device}")
+
+
+def horner_shape(shape):
+    """(16, *lanes, W) -> (lane count, W) of a Horner combine."""
+    if len(shape) < 2 or shape[0] != N_LIMBS or shape[-1] < 1:
+        raise ValueError(f"horner: expected (16, *lanes, W) totals, got "
+                         f"{tuple(shape)}")
+    lanes = 1
+    for d in shape[1:-1]:
+        lanes *= d
+    return lanes, shape[-1]
+
+
+def horner(totals, c_bits: int, tail_doubles: int = 0):
+    """One launch for CUDA tensors: totals, 3 coordinates of (16, *lanes,
+    W), -> 3 coordinates of (16, *lanes): acc = T[W-1], then for w = W-2
+    down to 0, c_bits complete doublings and a complete add of T[w]; then
+    tail_doubles more doublings.  The plain version is g1.plain_horner."""
+    shape, device = totals[0].shape, totals[0].device
+    _cuda_only("horner", device)
+    lanes, W = horner_shape(shape)
+    if c_bits < 0 or tail_doubles < 0:
+        raise ValueError("horner: c_bits and tail_doubles must be >= 0")
+    for c in totals:
+        _check("horner totals", c, shape, device)
+    # (16, lanes, W) views with one set of strides, copied only if need be
+    t3 = [c.reshape(N_LIMBS, lanes, W) for c in totals]
+    if any(t.stride() != t3[0].stride() for t in t3):
+        t3 = [t.contiguous() for t in t3]
+    out = tuple(torch.empty((N_LIMBS,) + tuple(shape[1:-1]),
+                            dtype=torch.int32, device=device)
+                for _ in range(3))
+    if lanes:
+        build.launch(device, _lib().h2_point_horner,
+                     *[t.data_ptr() for t in t3], *t3[0].stride(), lanes, W,
+                     c_bits, tail_doubles, *[o.data_ptr() for o in out])
+        launch_counts["horner"] += 1
+    return out
+
+
+def scalar_mul(p_aff, scalars_std: torch.Tensor):
+    """One launch for CUDA tensors: k_i * P_i for affine points (x, y),
+    each (16, *B), never the identity, and standard-form scalar limbs
+    (16, *B).  Returns projective (X, Y, Z).  The plain version is
+    g1.plain_scalar_mul."""
+    x, y = p_aff
+    shape, device = x.shape, x.device
+    _cuda_only("scalar_mul", device)
+    if len(shape) < 1 or shape[0] != N_LIMBS:
+        raise ValueError(f"scalar_mul: expected (16, ...) limbs, got "
+                         f"{tuple(shape)}")
+    _check("scalar_mul x", x, shape, device)
+    _check("scalar_mul y", y, shape, device)
+    _check("scalar_mul scalars", scalars_std, shape, device)
+    n = x.numel() // N_LIMBS
+    x2, y2 = x.reshape(N_LIMBS, n), y.reshape(N_LIMBS, n)
+    if x2.stride() != y2.stride():
+        x2, y2 = x2.contiguous(), y2.contiguous()
+    s2 = scalars_std.reshape(N_LIMBS, n)
+    out = tuple(torch.empty(shape, dtype=torch.int32, device=device)
+                for _ in range(3))
+    if n:
+        build.launch(device, _lib().h2_point_ladder, x2.data_ptr(),
+                     y2.data_ptr(), *x2.stride(), s2.data_ptr(), *s2.stride(),
+                     *[o.data_ptr() for o in out], n)
+        launch_counts["ladder"] += 1
+    return out

@@ -6,7 +6,7 @@ Montgomery-form Fq limb tensor (see fields/limbs.py).  All group ops are
 branch-free **complete formulas** (Renes-Costello-Batina 2015, homogeneous
 projective, a = 0), so they run over the batch axis with no data-dependent
 control flow: one thread per point in the kernels of curves/cuda_point.py,
-which `add`, `add_mixed` and `double` go through.
+which `add`, `add_mixed`, `double`, `horner` and `scalar_mul` go through.
 
 Identity (group zero) in homogeneous projective coordinates is (0 : 1 : 0).
 The device is that of the operands; constructors take it explicitly.
@@ -99,21 +99,56 @@ def to_affine(p):
     return (torch.where(zero_mask, 0, ax), torch.where(zero_mask, 0, ay))
 
 
+def horner(totals, c_bits: int, tail_doubles: int = 0):
+    """Horner over windows: totals, 3 coords of (16, *lanes, W) ->
+    3 coords of (16, *lanes): acc = T[W-1], then for w = W-2 down to 0,
+    c_bits doublings and an add of T[w]; then tail_doubles more doublings.
+    One kernel launch for CUDA tensors (curves/cuda_point.py), the plain
+    version on the CPU."""
+    if totals[0].device.type == "cuda":
+        return cuda_point.horner(totals, c_bits, tail_doubles)
+    return plain_horner(totals, c_bits, tail_doubles)
+
+
+def plain_horner(totals, c_bits: int, tail_doubles: int = 0):
+    """`horner`'s plain version, on any device: the loop of plain point
+    operations."""
+    W = totals[0].shape[-1]
+    acc = tuple(t[..., W - 1] for t in totals)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c_bits):
+            acc = cuda_point.plain_point("double", acc)
+        acc = cuda_point.plain_point("add", acc,
+                                     tuple(t[..., w] for t in totals))
+    for _ in range(tail_doubles):
+        acc = cuda_point.plain_point("double", acc)
+    return acc
+
+
 def scalar_mul(p_aff, scalars_std):
     """Batched scalar multiplication: k_i * P_i for affine points.
 
     scalars_std: (16, *batch) limbs in STANDARD form (not Montgomery) — the
     bit pattern is the actual scalar.  Double-and-add over all 256 bits,
-    least significant first.  Used for SRS setup; MSM uses the Pippenger
-    path in halo2_tpu_torch.msm instead."""
+    least significant first: one kernel launch for CUDA tensors
+    (curves/cuda_point.py), the plain version on the CPU.  Used for SRS
+    setup; MSM uses the Pippenger path in halo2_tpu_torch.msm instead."""
+    if p_aff[0].device.type == "cuda":
+        return cuda_point.scalar_mul(p_aff, scalars_std)
+    return plain_scalar_mul(p_aff, scalars_std)
+
+
+def plain_scalar_mul(p_aff, scalars_std):
+    """`scalar_mul`'s plain version, on any device: the ladder as a loop of
+    plain point operations."""
     x, y = p_aff
     acc = identity(x.shape[1:], x.device)
     base = from_affine((x.contiguous(), y.contiguous()))
     for j in range(256):
         bit = (scalars_std[j // 16] >> (j % 16)) & 1
-        acc = select(bit == 1, add(acc, base), acc)
+        acc = select(bit == 1, cuda_point.plain_point("add", acc, base), acc)
         if j < 255:
-            base = double(base)
+            base = cuda_point.plain_point("double", base)
     return acc
 
 

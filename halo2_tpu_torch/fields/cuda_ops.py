@@ -12,18 +12,34 @@ place of one Pallas TPU kernel of halo2_tpu/fields/pallas_ops.py:
   mul_tiled  replaces `_mul_tiled_call` — a * t with a table shared by every
              row, indexed j % k
 
-What bounds them on an H100: a Montgomery product is 136 32-bit
-multiply-adds on 128 bytes read and 64 written.  Against 3.35 TB/s and some
-33 T integer operations a second that is 57 ps of memory traffic and 8 ps
-of arithmetic an element, so all three are bound by device memory: storage
-keeps one 16-bit limb per 32-bit word (twice the bytes a packed layout
-would move) so that state is shared with the rest of the package as it is.
-The design keeps one element per thread in eight 32-bit registers, the
-whole CIOS product on carry chains (no intermediate ever leaves the
-registers), the modulus in constant memory, and reads every operand once.
+and two that run a sequential chain of products inside the kernel, where
+the JAX package compiles it into one `lax.scan`
+(halo2_tpu/fields/limbs.py):
+
+  pow_static  `Field.pow_static` / `Field.inv`: square and multiply over a
+              static exponent, one launch
+  prefix_mul  `Field.prefix_mul`: inclusive prefix products in three
+              launches (chunks, chunk totals in one block's shared memory,
+              fold), either direction, any n
+
+Their plain versions are the composed loops that stay in fields/limbs.py.
+
+What bounds them on an H100: a Montgomery product is 264 32-bit
+multiply-adds (CIOS: for each of 8 words, two rows of 8 low and 8 high
+multiply-adds and one product for m) on 128 bytes read and 64 written.
+Against 3.35 TB/s and 64 multiply-adds a clock on each of 132 SMs that is
+57 ps of memory traffic and some 16 ps of arithmetic an element, so the
+elementwise kernels are bound by device memory: storage keeps one 16-bit
+limb per 32-bit word (twice the bytes a packed layout would move) so that
+state is shared with the rest of the package as it is.  The design keeps
+one element per thread in eight 32-bit registers, the whole CIOS product
+on carry chains (no intermediate ever leaves the registers), the modulus
+in constant memory, and reads every operand once.  The chains are bound by
+the latency of their dependent products instead.
 
 A wrapper launches its kernel for a CUDA tensor and uses the plain version
-only for a tensor on the CPU.  `launch_counts` counts launches.
+only for a tensor on the CPU; the chain wrappers take CUDA tensors only.
+`launch_counts` counts launches.
 
 Arrays are `torch.int32`, limbs-leading `(16, *batch)`, one 16-bit limb a
 word (see fields/limbs.py).
@@ -42,7 +58,8 @@ LIMB_BITS = 16
 N_LIMBS = 16
 MASK = (1 << LIMB_BITS) - 1
 
-launch_counts = {"binop": 0, "butterfly": 0, "mul_tiled": 0}
+launch_counts = {"binop": 0, "butterfly": 0, "mul_tiled": 0, "pow": 0,
+                 "scan": 0}
 
 _OPS = {"add": 0, "sub": 1, "mul": 2}
 _FIELD_IDS = {"Fr": 0, "Fq": 1}
@@ -221,77 +238,192 @@ def _check_limbs(name: str, x: torch.Tensor, device=None):
         raise ValueError(f"{name}: on {x.device}, expected {device}")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("field_kernels")
-    if not getattr(lib, "_h2_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.h2_field_binop.argtypes = [ci, ci, vp, ll, ll, vp, ll, ll, vp,
-                                       ll, vp]
-        lib.h2_field_binop.restype = ci
-        lib.h2_butterfly.argtypes = [ci, vp, vp, ll, ll, vp, ll, ll, vp, ll,
-                                     ll, vp]
-        lib.h2_butterfly.restype = ci
-        lib.h2_mul_tiled.argtypes = [ci, vp, vp, vp, ll, ll, vp]
-        lib.h2_mul_tiled.restype = ci
-        lib._h2_typed = True
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.h2_field_binop.argtypes = [ci, ci, vp, ll, ll, vp, ll, ll, vp, ll,
+                                   vp]
+    lib.h2_butterfly.argtypes = [ci, vp, vp, ll, ll, vp, ll, ll, vp, ll, ll,
+                                 vp]
+    lib.h2_mul_tiled.argtypes = [ci, vp, vp, vp, ll, ll, vp]
+    lib.h2_field_pow.argtypes = [ci, vp, ll, ll, vp, ll,
+                                 ctypes.POINTER(ctypes.c_uint32), ci, vp]
+    lib.h2_scan_chunks.argtypes = [ci, vp, ll, ll, vp, ll, ll, vp, ll, ll,
+                                   ll, vp]
+    lib.h2_scan_totals.argtypes = [ci, vp, ll, ll, vp]
+    lib.h2_scan_fold.argtypes = [ci, vp, ll, ll, vp, ll, ll, ll, vp]
+    for fn in (lib.h2_field_binop, lib.h2_butterfly, lib.h2_mul_tiled,
+               lib.h2_field_pow, lib.h2_scan_chunks, lib.h2_scan_totals,
+               lib.h2_scan_fold):
+        fn.restype = ci
     return lib
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _rows(x: torch.Tensor, shape: tuple, n: int):
+    """x, of `shape` or one element, as (tensor, limb stride, element
+    stride) of n elements, without a copy; None where that takes one."""
+    if x.numel() == N_LIMBS:
+        return x, x.stride(0), 0
+    if tuple(x.shape) != shape:
+        return None
+    if x.ndim == 2:
+        return x, x.stride(0), x.stride(1)
+    if x.is_contiguous():
+        return x, n, 1
+    return None
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+def _broadcast(a: torch.Tensor, b: torch.Tensor):
+    """The batch shape two operands broadcast to (an operand with fewer
+    dims is extended on the right, so a (16,) scalar meets any batch),
+    the operands reshaped to that many dims, and the element count."""
+    nd = max(a.ndim, b.ndim)
+    if a.ndim != nd:
+        a = a.reshape(tuple(a.shape) + (1,) * (nd - a.ndim))
+    if b.ndim != nd:
+        b = b.reshape(tuple(b.shape) + (1,) * (nd - b.ndim))
+    if any(x != y and 1 not in (x, y) for x, y in zip(a.shape, b.shape)):
+        raise ValueError(f"binop: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not broadcast")
+    shape = tuple(x if y == 1 else y for x, y in zip(a.shape, b.shape))
+    n = 1
+    for d in shape[1:]:
+        n *= d
+    return a, b, shape, n
+
+
+def plain_op(op: str, field, a: torch.Tensor, b: torch.Tensor):
+    """`binop`'s plain version on any device: add / sub / mul of two
+    operands that broadcast as binop's do."""
+    a, b, shape, n = _broadcast(a, b)
+    a2 = a.expand(shape).reshape(N_LIMBS, n)
+    b2 = b.expand(shape).reshape(N_LIMBS, n)
+    return plain_binop(op, field, a2, b2).reshape(shape)
 
 
 def binop(op: str, field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Field binary op on (16, *batch) limb arrays, broadcasting the batch
-    dims (an operand with fewer dims is extended on the right, so a (16,)
-    scalar meets any batch).  An operand that is a single element is
-    broadcast by the kernel itself; any other broadcast is materialised
-    first."""
+    dims as `plain_op` does.  The kernel reads each operand through a limb
+    stride and an element stride, so a single element, any (16, n) view
+    (a strided column included) and a contiguous array go in as they are;
+    any other broadcast is materialised first."""
     if op not in _OPS:
         raise ValueError(f"unknown field op {op!r}")
+    dev = a.device
     _check_limbs("binop a", a)
-    _check_limbs("binop b", b, a.device)
-    # limbs lead, so an operand with fewer batch dims gains trailing ones
-    nd = max(a.ndim, b.ndim)
-    a = a.reshape(tuple(a.shape) + (1,) * (nd - a.ndim))
-    b = b.reshape(tuple(b.shape) + (1,) * (nd - b.ndim))
-    if any(x != y and 1 not in (x, y) for x, y in zip(a.shape, b.shape)):
-        raise ValueError(f"binop: shapes {tuple(a.shape)} and "
-                         f"{tuple(b.shape)} do not broadcast")
-    shape = tuple(max(x, y) for x, y in zip(a.shape, b.shape))
-    n = 1
-    for d in shape[1:]:
-        n *= d
+    _check_limbs("binop b", b, dev)
+    if dev.type == "cpu":
+        return plain_op(op, field, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"binop: unsupported device {dev}")
+    # the common cases skip the general broadcast: equal shapes, or one
+    # operand a single element with no more dims than the other
+    if a.shape == b.shape or (b.numel() == N_LIMBS and b.ndim <= a.ndim):
+        shape, n = tuple(a.shape), a.numel() // N_LIMBS
+    elif a.numel() == N_LIMBS and a.ndim <= b.ndim:
+        shape, n = tuple(b.shape), b.numel() // N_LIMBS
+    else:
+        a, b, shape, n = _broadcast(a, b)
+    ra = _rows(a, shape, n) or (
+        a.expand(shape).reshape(N_LIMBS, n).contiguous(), n, 1)
+    rb = _rows(b, shape, n) or (
+        b.expand(shape).reshape(N_LIMBS, n).contiguous(), n, 1)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if n:
+        build.launch(dev, _lib().h2_field_binop, _OPS[op],
+                     _FIELD_IDS[field.name], ra[0].data_ptr(), ra[1], ra[2],
+                     rb[0].data_ptr(), rb[1], rb[2], out.data_ptr(), n)
+        launch_counts["binop"] += 1
+    return out
 
-    def flat(x):
-        if x.numel() == N_LIMBS and n != 1:
-            return x.reshape(N_LIMBS, 1), True
-        return x.expand(shape).reshape(N_LIMBS, n).contiguous(), False
 
-    a2, a_one = flat(a)
-    b2, b_one = flat(b)
-    if a.device.type == "cpu":
-        if a_one:
-            a2 = a2.expand(N_LIMBS, n)
-        return plain_binop(op, field, a2, b2).reshape(shape)
+def exponent_words(e: int):
+    """A static exponent as the pow kernel takes it: eight little-endian
+    32-bit words and the bit length."""
+    if not 0 <= e < 1 << 256:
+        raise ValueError("pow_static: the exponent must lie in [0, 2^256)")
+    return [(e >> (32 * k)) & 0xFFFFFFFF for k in range(8)], e.bit_length()
+
+
+def pow_static(field, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a**e (Montgomery form in and out) for a CUDA tensor (16, *batch), in
+    one launch; 0 -> 0 for e > 0, and e = 0 gives one everywhere.  The
+    plain version is `Field.plain_pow_static`."""
+    _check_limbs("pow_static a", a)
     if a.device.type != "cuda":
-        raise ValueError(f"binop: unsupported device {a.device}")
-    a2, b2 = a2.contiguous(), b2.contiguous()
+        raise ValueError(f"pow_static: the kernel takes CUDA tensors, not "
+                         f"{a.device}")
+    n = a.numel() // N_LIMBS
+    shape = tuple(a.shape)
+    x = _rows(a, shape, n) or (a.reshape(N_LIMBS, n).contiguous(), n, 1)
+    words, nbits = exponent_words(e)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    if n:
+        build.launch(a.device, _lib().h2_field_pow, _FIELD_IDS[field.name],
+                     x[0].data_ptr(), x[1], x[2], out.data_ptr(), n,
+                     (ctypes.c_uint32 * 8)(*words), nbits)
+        launch_counts["pow"] += 1
+    return out
+
+
+# the scan's chunking: at most SCAN_CHUNKS chunks, so that pass 2 (one
+# block of SCAN_THREADS threads, csrc/field_kernels.cu) folds at most
+# SCAN_CHUNKS / SCAN_THREADS totals a thread; 4096 chunk threads cover the
+# 132 SMs of an H100 with one 32-thread block each
+SCAN_THREADS = 512
+SCAN_CHUNKS = 4096
+
+
+def scan_plan(n: int):
+    """(L, C, per) for a scan of n >= 1 elements: C chunks of L (the last
+    one holds the rest, at least one element), `per` chunk totals for each
+    thread of pass 2."""
+    if n < 1:
+        raise ValueError("scan_plan: n must be at least 1")
+    L = -(-n // SCAN_CHUNKS)
+    C = -(-n // L)
+    return L, C, -(-C // SCAN_THREADS)
+
+
+def scan_origin(n: int, es: int, reverse: bool):
+    """Where logical element 0 of a scan sits, in elements from the first
+    one, and the element stride from one logical element to the next: a
+    reverse scan starts at the last element and walks back."""
+    return ((n - 1) * es, -es) if reverse else (0, es)
+
+
+def prefix_mul(field, a: torch.Tensor, reverse: bool = False):
+    """Inclusive prefix products of a CUDA (16, n) array, from the end if
+    `reverse`, in three launches (chunks, chunk totals, fold); a strided
+    view goes in as it is.  The plain version is
+    `Field.plain_prefix_mul`."""
+    _check_limbs("prefix_mul a", a)
+    if a.ndim != 2:
+        raise ValueError("prefix_mul expects (16, N)")
+    if a.device.type != "cuda":
+        raise ValueError(f"prefix_mul: the kernel takes CUDA tensors, not "
+                         f"{a.device}")
+    n = a.shape[1]
     out = torch.empty((N_LIMBS, n), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _lib().h2_field_binop(
-            _OPS[op], _FIELD_IDS[field.name],
-            a2.data_ptr(), 1 if a_one else n, 0 if a_one else 1,
-            b2.data_ptr(), 1 if b_one else n, 0 if b_one else 1,
-            out.data_ptr(), n, _stream(a.device))
-    _raise_on(err, f"field {op}")
-    launch_counts["binop"] += 1
-    return out.reshape(shape)
+    if n == 0:
+        return out
+    L, C, per = scan_plan(n)
+    lib, fid, dev = _lib(), _FIELD_IDS[field.name], a.device
+    a0, a_es = scan_origin(n, a.stride(1), reverse)
+    o0, o_es = scan_origin(n, 1, reverse)
+    a_ptr = a.data_ptr() + 4 * a0
+    o_ptr = out.data_ptr() + 4 * o0
+    totals = torch.empty((N_LIMBS, C), dtype=torch.int32, device=dev)
+    build.launch(dev, lib.h2_scan_chunks, fid, a_ptr, a.stride(0), a_es,
+                 o_ptr, n, o_es, totals.data_ptr(), n, L, C)
+    launch_counts["scan"] += 1
+    build.launch(dev, lib.h2_scan_totals, fid, totals.data_ptr(), C, per)
+    launch_counts["scan"] += 1
+    build.launch(dev, lib.h2_scan_fold, fid, o_ptr, n, o_es,
+                 totals.data_ptr(), n, L, C)
+    launch_counts["scan"] += 1
+    return out
 
 
 def butterfly(field, lo: torch.Tensor, hi: torch.Tensor, tw: torch.Tensor,
@@ -322,12 +454,9 @@ def butterfly(field, lo: torch.Tensor, hi: torch.Tensor, tw: torch.Tensor,
         raise ValueError("butterfly: tw must be contiguous")
     out = torch.empty((N_LIMBS, mid, 2, half), dtype=torch.int32,
                       device=lo.device)
-    with torch.cuda.device(lo.device):
-        err = _lib().h2_butterfly(
-            _FIELD_IDS[field.name], lo.data_ptr(), hi.data_ptr(),
-            lo.stride(0), lo.stride(1), tw.data_ptr(), half // rep, rep,
-            out.data_ptr(), mid, half, _stream(lo.device))
-    _raise_on(err, "butterfly")
+    build.launch(lo.device, _lib().h2_butterfly, _FIELD_IDS[field.name],
+                 lo.data_ptr(), hi.data_ptr(), lo.stride(0), lo.stride(1),
+                 tw.data_ptr(), half // rep, rep, out.data_ptr(), mid, half)
     launch_counts["butterfly"] += 1
     return out
 
@@ -350,10 +479,7 @@ def mul_tiled(field, a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     if not a.is_contiguous() or not t.is_contiguous():
         raise ValueError("mul_tiled: a and t must be contiguous")
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _lib().h2_mul_tiled(
-            _FIELD_IDS[field.name], a.data_ptr(), t.data_ptr(),
-            out.data_ptr(), mid, k, _stream(a.device))
-    _raise_on(err, "mul_tiled")
+    build.launch(a.device, _lib().h2_mul_tiled, _FIELD_IDS[field.name],
+                 a.data_ptr(), t.data_ptr(), out.data_ptr(), mid, k)
     launch_counts["mul_tiled"] += 1
     return out

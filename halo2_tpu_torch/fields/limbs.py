@@ -16,8 +16,10 @@ Layout (decided once, here):
     device, converted at host boundaries.
 
 `add`, `sub` and `mul` go to `fields/cuda_ops.py`, which launches a kernel
-for a CUDA tensor and runs its plain version for a CPU tensor.  Everything
-else here is composed of those three.
+for a CUDA tensor and runs its plain version for a CPU tensor; so do
+`pow_static` (hence `inv`) and `prefix_mul`, each one kernel chain on the
+card, whose plain versions (`plain_pow_static`, `plain_prefix_mul`) are
+the composed loops here.  Everything else is composed of those.
 """
 
 from __future__ import annotations
@@ -229,16 +231,23 @@ class Field:
         return self.mul(a_mont, one_std)
 
     def pow_static(self, a, e: int):
-        """a**e for a Python-int exponent (square and multiply, most
-        significant bit first)."""
+        """a**e for a Python-int exponent: one kernel launch for a CUDA
+        tensor (fields/cuda_ops.py), the plain version on the CPU."""
+        if a.device.type == "cuda":
+            return cuda_ops.pow_static(self, a, e)
+        return self.plain_pow_static(a, e)
+
+    def plain_pow_static(self, a, e: int):
+        """`pow_static`'s plain version, on any device: square and
+        multiply, most significant bit first, one plain product a step."""
         if e == 0:
             return self.broadcast_scalar(
                 self.one.to(a.device), a.shape[1:]).contiguous()
         res = a
         for bit in bin(e)[3:]:
-            res = self.square(res)
+            res = cuda_ops.plain_op("mul", self, res, res)
             if bit == "1":
-                res = self.mul(res, a)
+                res = cuda_ops.plain_op("mul", self, res, a)
         return res
 
     def inv(self, a):
@@ -246,7 +255,18 @@ class Field:
         return self.pow_static(a, self.p - 2)
 
     def prefix_mul(self, a, reverse: bool = False, block: int = 1024):
-        """Inclusive prefix products of a (16, N) vector.
+        """Inclusive prefix products of a (16, N) vector, from the end if
+        `reverse`: three kernel launches for a CUDA tensor
+        (fields/cuda_ops.py, which chunks as suits the card), the plain
+        version on the CPU."""
+        if a.ndim != 2:
+            raise ValueError("prefix_mul expects (16, N)")
+        if a.device.type == "cuda":
+            return cuda_ops.prefix_mul(self, a, reverse)
+        return self.plain_prefix_mul(a, reverse, block)
+
+    def plain_prefix_mul(self, a, reverse: bool = False, block: int = 1024):
+        """`prefix_mul`'s plain version, on any device.
 
         Two-level blocked scan: N = B*S elements are laid out as B
         contiguous chunks of length S; S steps compute the running products
@@ -257,7 +277,11 @@ class Field:
             raise ValueError("prefix_mul expects (16, N)")
         n = a.shape[1]
         if reverse:
-            return self.prefix_mul(a.flip(1), block=block).flip(1)
+            return self.plain_prefix_mul(a.flip(1), block=block).flip(1)
+
+        def mul(x, y):
+            return cuda_ops.plain_op("mul", self, x, y)
+
         B = min(block, n)
         S = -(-n // B)
         pad = B * S - n
@@ -267,14 +291,14 @@ class Field:
         x = a.reshape(N_LIMBS, B, S)
         steps = [x[:, :, 0]]
         for s in range(1, S):
-            steps.append(self.mul(steps[-1], x[:, :, s]))
+            steps.append(mul(steps[-1], x[:, :, s]))
         chunk_pref = torch.stack(steps, dim=2)            # (16, B, S)
         totals = steps[-1]                                # (16, B)
         excl = [one[:, None]]
         for b in range(B - 1):
-            excl.append(self.mul(excl[-1], totals[:, b:b + 1]))
+            excl.append(mul(excl[-1], totals[:, b:b + 1]))
         excl = torch.cat(excl, dim=1)                     # (16, B) exclusive
-        out = self.mul(chunk_pref, excl[:, :, None])
+        out = mul(chunk_pref, excl[:, :, None])
         return out.reshape(N_LIMBS, B * S)[:, :n]
 
     def batch_inverse(self, a):

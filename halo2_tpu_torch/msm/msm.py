@@ -3,7 +3,7 @@
 One algorithm on every device and at every size: the sort-based signed
 window path of msm/sorted.py (sort by digit, blocked prefix scan of point
 additions, bucket sums from prefix differences, Abel summation), then a
-Horner combine over the windows.
+Horner combine over the windows (one kernel launch on the card).
 
   * `max_bits` reproduces the reference's bounded-window fast path
     (`commit_lagrange_with_bound`): scalars known to be short (u16 blinding
@@ -28,14 +28,9 @@ SORT_BLOCK = 2048
 
 def _combine_windows(totals, c_bits: int):
     """Horner over windows: acc = (acc * 2^c) + T_w, w descending.
-    totals: 3 coords of (16, *lanes, W); returns 3 coords of (16, *lanes)."""
-    W = totals[0].shape[-1]
-    acc = tuple(t[..., W - 1] for t in totals)
-    for w in range(W - 2, -1, -1):
-        for _ in range(c_bits):
-            acc = g1.double(acc)
-        acc = g1.add(acc, tuple(t[..., w] for t in totals))
-    return acc
+    totals: 3 coords of (16, *lanes, W); returns 3 coords of (16, *lanes)
+    (`g1.horner`: one kernel launch on the card)."""
+    return g1.horner(totals, c_bits)
 
 
 def _block_for(n: int) -> int:

@@ -208,9 +208,8 @@ def _abel_window_totals(e_pts, nb: int):
     if M & (M - 1):
         raise ValueError("bucket count must be a power of two plus one")
     s_sum = _sum_points_lastaxis(tuple(c[..., :M] for c in e_pts))
-    acc = tuple(c[..., M] for c in e_pts)
-    for _ in range(M.bit_length() - 1):      # M * E_M by doublings
-        acc = g1.double(acc)
+    acc = g1.horner(tuple(c[..., M:] for c in e_pts), 0,   # M * E_M
+                    M.bit_length() - 1)
     return g1.add(acc, g1.neg(s_sum))
 
 

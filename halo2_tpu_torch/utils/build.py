@@ -1,10 +1,11 @@
-"""Build and load the CUDA kernels.
+"""Build, load and launch the CUDA kernels.
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into
 `_build/lib<name>.so`, a shared library with a plain C interface that is
 loaded with `ctypes`.  Nothing here includes PyTorch's headers, so a build
 takes seconds.  The build happens at first use (or ahead of time, all
-sources in parallel, through `build_all`), never at import.
+sources in parallel, through `build_all`), never at import.  `launch`
+calls an entry point on a device's current stream.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -71,6 +74,24 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
     return log
 
 
+def ptxas_usage(log: str) -> dict:
+    """{function: {"registers": int, "stack_bytes": int}} from the
+    `-Xptxas -v` lines of an nvcc log, by mangled name (a device function
+    that is not inlined has its own stack frame and no registers line)."""
+    out, fn, props = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            out[fn] = {}
+        elif "Function properties for" in line:
+            props = line.split("Function properties for", 1)[1].strip()
+        elif props and "bytes stack frame" in line:
+            out.setdefault(props, {})["stack_bytes"] = int(line.split()[0])
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(line.split("Used", 1)[1].split()[0])
+    return out
+
+
 def build_all() -> dict:
     """Compile every stale source, all `nvcc` processes started together.
     Returns {"seconds": wall time, "logs": {name: compiler output}}."""
@@ -78,6 +99,22 @@ def build_all() -> dict:
     procs = {name: _start(name) for name in SOURCES if _stale(name)}
     logs = {name: _finish(name, proc) for name, proc in procs.items()}
     return {"seconds": time.time() - t0, "logs": logs}
+
+
+def launch(device: torch.device, fn, *args) -> None:
+    """fn(*args, stream) with `device` the current CUDA device and its
+    current stream (the capturing stream inside a CUDA graph).  The stream
+    is read on every call, never cached; the device switch is skipped when
+    `device` is already current.  Raises on the error code fn returns."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
+                           f"{err}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,26 +3,46 @@
 `PhaseTimes` records the seconds between successive marks; on a CUDA
 device it waits for the device at every mark, so a phase is charged the
 work it enqueued.  `counters` is a small registry (MSM / NTT call counts).
-`time_cuda`, `bound_ms` and `max_abs_err` are what chip_smoke.py and the
-examples report for a kernel: its time on the card, the least time the
-card could take for the same work, and its error against a plain version.
+`time_cuda`, `time_graph`, `bound_ms` and `max_abs_err` are what
+chip_smoke.py and the examples report for a kernel: its time on the card
+(launched from Python, and replayed from a CUDA graph with no host in the
+way), the least time the card could take for the same work, and its error
+against a plain version.
 """
 
 from __future__ import annotations
 
+import functools
+import subprocess
 import time
 
 import torch
 
 counters: dict = {}
 
-# Peaks of one H100 SXM at its full power limit (NVIDIA's data sheet).  The
-# data sheet gives no 32-bit integer rate: an SM runs half as many 32-bit
-# integer multiply-adds a clock as float32 ones, so the integer peak is
-# taken as half the float32 peak, a multiply-add counted as two operations.
+# Peaks of one H100 SXM at its full power limit (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2
 BF16_FLOP_PER_S = 989e12
+# The data sheet gives no 32-bit integer rate.  The kernels' integer work is
+# counted in multiply-add-class instructions (a CIOS Montgomery product is
+# 264 of them, see fields/cuda_ops.py), issued at 64 a clock on each SM:
+# `int_mad_per_s` takes the SM count and the SM clock the card reports.
+INT_MAD_PER_CLOCK_PER_SM = 64
+
+
+@functools.lru_cache(maxsize=None)
+def card_int_rate(index: int = 0) -> dict:
+    """The integer rate of CUDA card `index`: 64 multiply-adds a clock on
+    each SM (the count torch reports) at the maximum SM clock nvidia-smi
+    reports.  {"sms", "sm_clock_mhz", "mad_per_s"}."""
+    smi = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return {"sms": sms, "sm_clock_mhz": mhz,
+            "mad_per_s": INT_MAD_PER_CLOCK_PER_SM * sms * mhz * 1e6}
 
 
 def incr(name: str, v: float = 1):
@@ -76,11 +96,48 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = INT32_OPS_PER_S):
+def time_graph(fn, reps: int = 20, replays: int = 3) -> float:
+    """Milliseconds per call of fn with no host in the way: `reps` calls
+    captured once in a CUDA graph (after one warm call), the graph replayed
+    once to warm up, then `replays` times between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def timed(fn):
+    """(fn(), milliseconds) of one call between CUDA events, for work too
+    slow to repeat (a plain version at full width)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float | None = None):
     """The least time in ms the card could take: the larger of the bytes
-    over the memory rate and the operations over their peak rate; and
-    which of the two it is ("bytes" or "operations")."""
+    over the memory rate and the operations over their peak rate (by
+    default integer multiply-add-class instructions at `card_int_rate`);
+    and which of the two it is ("bytes" or "operations")."""
+    if ops_per_s is None:
+        ops_per_s = card_int_rate()["mad_per_s"]
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
