@@ -11,16 +11,18 @@ Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
            with CUDA events beside its bound: `ms` around 20 launches from
            Python, `device_ms` from the same 20 launches replayed from a
            CUDA graph.  The chain entry points (pow / inv, the prefix-product
-           scan, the Horner combine, the scalar ladder) are held to their
-           composed plain versions at the proof's shapes and at edge cases,
-           and each public function is shown to make its one launch (three
-           for the scan);
+           scan, the MSM's bucket scan, the Horner combine, the scalar
+           ladder) are held to their composed plain versions at the proof's
+           shapes and at edge cases, and each public function is shown to
+           make its one launch (three for the prefix-product scan);
   golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
            its seeds and compares the proof bytes;
   prove    unsafe_setup -> keygen -> create_proof -> verify_proof for a
            row-filling chain of mul gates at 2^k rows, with every kernel's
            launch count set to 0 just before and read just after (all
-           counters printed, with the K1 and K4 family totals); a proof
+           counters printed, with the K1 and K4 family totals; the MSM's
+           bucket scan launched once a window group, the Horner kernel once
+           a call, the 1:1 scan step `add_mixed_packed` never); a proof
            with one byte flipped must be rejected;
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
@@ -166,6 +168,7 @@ def phase_env(out):
     for log in built["logs"].values():
         ptxas.update(build.ptxas_usage(log))
     out["smi"] = smi.stdout.strip().splitlines()[0]
+    out["ptxas"] = ptxas
     env = {"nvidia_smi": out["smi"], "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "nvcc": nvcc.stdout.strip().splitlines()[-2:],
@@ -197,6 +200,7 @@ def _shapes(k: int):
                 cs.num_instance_columns, qd)
     return {"n": n, "ext_n": ext_n, "ext_k": ext_k,
             "scan": windows * block, "windows": windows, "c": c,
+            "block": block, "nb": (1 << (c - 1)) + 1,
             "horner_lanes": lanes}
 
 
@@ -452,9 +456,97 @@ def _k5_packed(sh, gen, device, pts) -> dict:
                   _time_cuda(lambda: cuda_point.plain_add_mixed_packed(
                       c, packed, sign), 2)),
          **_bounds((7 * N_LIMBS + 1) * WORD * m, muls * m, (adds + 1) * m)}
-    return _entry("add_mixed_packed", "halo2_tpu_torch/csrc/point_kernels.cu",
-                  "halo2_tpu/curves/pallas_point.py:73", [v],
-                  f"carry 3 x (16, {m}), packed (16, {m}), sign ({m},)")
+    e = _entry("add_mixed_packed", "halo2_tpu_torch/csrc/point_kernels.cu",
+               "halo2_tpu/curves/pallas_point.py:73", [v],
+               f"carry 3 x (16, {m}), packed (16, {m}), sign ({m},)")
+    e["launches_from"] = ("the prove path launches it 0 times: msm_scan "
+                          "runs every step of a window group in one launch")
+    return e
+
+
+def _ptxas_of(ptxas: dict, kernel: str) -> dict:
+    """Registers and stack bytes of a kernel, by its name in the ptxas
+    log of this run's build."""
+    for name, usage in ptxas.items():
+        if kernel in name and "registers" in usage:
+            return {"registers": usage["registers"],
+                    "stack_bytes": usage.get("stack_bytes", 0)}
+    return {"registers": None, "stack_bytes": None}
+
+
+def _scan_inputs(gen, device, G, n, c, kind):
+    """Sorted (order, key) of G windows of n points: the signed c-bit
+    digits of random 254-bit scalars, or an edge case of the digits and
+    signs."""
+    nb = (1 << (c - 1)) + 1
+    if kind == "scalars":
+        mag, neg = msm_sorted._signed_digits(_rand_scalars(n, gen, device),
+                                             G, c)
+    else:
+        rand = lambda hi: torch.randint(  # noqa: E731
+            0, hi, (G, n), dtype=torch.int32, device=device, generator=gen)
+        neg = rand(2)
+        if kind == "one bucket":
+            mag = torch.full((G, n), 7, dtype=torch.int32, device=device)
+        elif kind == "digit 0 and the top":
+            mag = rand(2) * (nb - 1)
+        elif kind == "all signs set":
+            mag, neg = rand(nb), torch.ones_like(neg)
+        elif kind == "empty buckets between":
+            mag = torch.tensor([3, 100, nb - 1], dtype=torch.int32,
+                               device=device)[rand(3).long()]
+        else:
+            mag = rand(nb)
+    key, order = torch.sort((mag << 1) | neg, dim=1, stable=True)
+    return order, key
+
+
+def _msm_scan(sh, gen, device, pts, ptxas) -> dict:
+    """The MSM's bucket scan of one window group: one launch, against the
+    loop of plain scan steps."""
+    aff_q = pts[2]
+    n, G, B, nb = sh["n"], sh["windows"], sh["block"], sh["nb"]
+    rows = msm_sorted.pack_xy(aff_q[0], aff_q[1]).t().contiguous()
+    order, key = _scan_inputs(gen, device, G, n, sh["c"], "scalars")
+
+    def run():
+        return cuda_point.msm_scan(rows, order, key, B, nb)
+    want, plain_ms = profiling.timed(
+        lambda: cuda_point.plain_msm_scan(rows, order, key, B, nb))
+    _expect_launches("msm_scan", run, {"msm_scan": 1})
+    worst = _max_err(_flat_scan(run()), _flat_scan(want))
+    n_neg = int((key & 1).sum().item())
+    muls, adds = POINT_OPS["add_mixed"]
+    v = {"variant": f"G={G} S={n // B} B={B}", "max_abs_err": worst,
+         **_times(run, plain_ms),
+         **_bounds(rows.numel() * WORD + 12 * G * n
+                   + 3 * N_LIMBS * WORD * G * (B + nb) + WORD * G * nb,
+                   muls * G * n, adds * G * n + n_neg)}
+    # edge cases, at the proof's block with fewer windows and steps
+    edges = []
+    for kind, G_, S_ in (("one bucket", 3, 4), ("digit 0 and the top", 3, 4),
+                         ("all signs set", 3, 4), ("digits", 1, 4),
+                         ("digits", 3, 1), ("empty buckets between", 3, 4)):
+        o, k = _scan_inputs(gen, device, G_, S_ * B, sh["c"], kind)
+        err = _max_err(
+            _flat_scan(cuda_point.msm_scan(rows, o, k, B, nb)),
+            _flat_scan(cuda_point.plain_msm_scan(rows, o, k, B, nb)))
+        edges.append({"case": kind, "G": G_, "S": S_, "max_abs_err": err})
+    v["max_abs_err"] = max([worst] + [e["max_abs_err"] for e in edges])
+    v["edge_cases"] = edges
+    e = _entry("msm_scan", "halo2_tpu_torch/csrc/point_kernels.cu",
+               "halo2_tpu/curves/pallas_point.py:73 (every step of "
+               "halo2_tpu/msm/sorted.py:144 _prefix_scan_group)", [v],
+               f"rows ({n}, 16), order and key ({G}, {n}), block {B}, "
+               f"nb {nb}")
+    e.update(_ptxas_of(ptxas, "msm_scan_kernel"))
+    return e
+
+
+def _flat_scan(out):
+    """msm_scan's (totals, table, blk) as one list of tensors."""
+    totals, table, blk = out
+    return list(totals) + list(table) + [blk]
 
 
 def _horner_bounds(lanes, W, c, tail) -> dict:
@@ -466,7 +558,7 @@ def _horner_bounds(lanes, W, c, tail) -> dict:
                    lanes * (chain * da + (W - 1) * aa))
 
 
-def _point_horner(sh, gen, device, pts) -> dict:
+def _point_horner(sh, gen, device, pts, ptxas) -> dict:
     """The Horner combine: one launch, against the composed loop."""
     aff_p, proj_p, aff_q, proj_q, ident = pts
     lanes, W, c = sh["horner_lanes"], sh["windows"], sh["c"]
@@ -496,7 +588,8 @@ def _point_horner(sh, gen, device, pts) -> dict:
                      {"horner": 1})
     # edge cases: identity lanes and windows (an all-identity lane, zero
     # windows at the top, the middle and the bottom), W = 1, one lane,
-    # lanes of two dims, the window axis strided
+    # lane counts that are no multiple of the lanes a block (17, 5), lanes
+    # of two dims, the window axis strided
     worst = 0
     tot = [x.clone() for x in totals_of(4, W)]
     for lane, ws in ((0, range(W)), (1, (W - 1,)), (2, (W // 2,)), (3, (0,))):
@@ -504,7 +597,8 @@ def _point_horner(sh, gen, device, pts) -> dict:
             for x, v in zip(tot, ident):
                 x[:, lane, w] = v[:, 0]
     cases = [(tuple(tot), c, 0), (tuple(tot), 3, 2), (totals_of(1, 1), 5, 0),
-             (totals_of(1, 2), 4, 0),
+             (totals_of(1, 2), 4, 0), (totals_of(1, W), c, 0),
+             (totals_of(17, 3), 4, 1), (totals_of(5, 4), 3, 0),
              (tuple(x.reshape(N_LIMBS, 2, 2, 3) for x in totals_of(4, 3)),
               4, 1),
              (tuple(x[:, :, ::2] for x in totals_of(2, 6)), 2, 0)]
@@ -512,9 +606,11 @@ def _point_horner(sh, gen, device, pts) -> dict:
         worst = max(worst, _max_err(cuda_point.horner(t, cb, tail),
                                     g1.plain_horner(t, cb, tail)))
     variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
-    return _entry("point_horner", "halo2_tpu_torch/csrc/point_kernels.cu",
-                  "halo2_tpu/msm/msm.py:152 _combine_windows (lax.scan)",
-                  variants, f"3 x (16, {lanes}, {W}), c = {c}")
+    e = _entry("point_horner", "halo2_tpu_torch/csrc/point_kernels.cu",
+               "halo2_tpu/msm/msm.py:152 _combine_windows (lax.scan)",
+               variants, f"3 x (16, {lanes}, {W}), c = {c}")
+    e.update(_ptxas_of(ptxas, "point_horner_kernel"))
+    return e
 
 
 def _rand_scalars(n, gen, device):
@@ -562,7 +658,7 @@ def _point_ladder(sh, gen, device, pts) -> dict:
                   f"(x, y) 2 x (16, {n}), scalars (16, {n})")
 
 
-def phase_kernels(k: int, device) -> list:
+def phase_kernels(k: int, device, ptxas: dict) -> list:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
     sh = _shapes(k)
@@ -575,7 +671,8 @@ def phase_kernels(k: int, device) -> list:
                _field_scan(sh, gen, device),
                _k4_point_op(sh, gen, device, pts),
                _k5_packed(sh, gen, device, pts),
-               _point_horner(sh, gen, device, pts),
+               _msm_scan(sh, gen, device, pts, ptxas),
+               _point_horner(sh, gen, device, pts, ptxas),
                _point_ladder(sh, gen, device, pts)]
     for e in entries:
         if e["max_abs_err"] != 0:
@@ -620,6 +717,8 @@ def _reset_counts():
 FAMILIES = {"K1": ("binop", "pow", "scan"),
             "K4": ("point_op", "horner", "ladder")}
 FAMILY_LIMITS_K16 = {"K1": 6000, "K4": 1500}
+# the 1:1 port of the Pallas scan step: the bucket scan took its place
+OFF_PROVE_PATH = ("add_mixed_packed",)
 
 
 def phase_prove(k: int, seed: int, device) -> dict:
@@ -655,9 +754,19 @@ def phase_prove(k: int, seed: int, device) -> dict:
     if bad:
         raise AssertionError("a tampered proof was accepted")
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name not in OFF_PROVE_PATH:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  f"main path")
+    for name in OFF_PROVE_PATH:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} was launched "
+                                 f"{launches[name]} times on the main path")
+    counters = dict(profiling.counters)
+    for name, per in (("msm_scan", "msm_window_groups"),
+                      ("horner", "horner_calls")):
+        if launches[name] != counters[per]:
+            raise AssertionError(f"{name} made {launches[name]} launches for "
+                                 f"{counters[per]} {per}")
     n = 1 << k
     usable = vk.cs.usable_rows(n)
     print(json.dumps({"prove": {
@@ -670,7 +779,7 @@ def phase_prove(k: int, seed: int, device) -> dict:
         "create_proof_seconds": {n_: round(s, 3) for n_, s
                                  in prover_phases.seconds.items()},
         "launches": launches, "launches_by_family": families,
-        "counters": dict(profiling.counters),
+        "counters": counters,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}}),
         flush=True)
     if k == 16:
@@ -772,7 +881,8 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "mul_tiled": "mul_tiled", "field_pow": "pow",
               "field_scan": "scan", "point_op": "point_op",
               "add_mixed_packed": "add_mixed_packed",
-              "point_horner": "horner", "point_ladder": "ladder",
+              "msm_scan": "msm_scan", "point_horner": "horner",
+              "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
 ALL_PHASES = "env,kernels,golden,prove,dft"
 
@@ -795,7 +905,8 @@ def main(argv=None) -> int:
     torch.zeros(1, device=device)            # the context exists from here on
     out = {}
     phase_env(out)
-    entries = phase_kernels(args.k, device) if "kernels" in phases else []
+    entries = phase_kernels(args.k, device, out["ptxas"]) \
+        if "kernels" in phases else []
     if "golden" in phases:
         phase_golden(device)
     launches = phase_prove(args.k, args.seed, device) \

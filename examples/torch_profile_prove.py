@@ -7,9 +7,12 @@ Sets up and keys the row-filling MulChainCircuit at 2^K rows, proves once
 to warm up, then proves again under torch.profiler (CPU + CUDA activities)
 and prints one JSON object: the proof's wall seconds, the summed device
 time of all kernels, the device's busy share of the wall time, the ten
-kernels with the most device time, and with --show every kernel whose name
-contains TEXT (e.g. `scan_` for the three passes of the prefix-product
-scan).  Needs one CUDA device.
+kernels with the most device time, the launches and device time of all
+kernels and of PyTorch's elementwise kernels (names holding
+"elementwise"), and with --show every kernel whose name contains TEXT
+(e.g. `scan_` for the three passes of the prefix-product scan).  Uses only
+functions every tree of the port has, so it can be copied into an older
+tree to compare.  Needs one CUDA device.
 """
 
 import argparse
@@ -69,10 +72,18 @@ def main() -> int:
     def listed(picked):
         return [{"name": n[:80], "device_ms": round(t / 1e3, 3), "calls": c}
                 for n, t, c in picked]
+
+    def summed(picked):
+        picked = list(picked)
+        return {"launches": sum(r[2] for r in picked),
+                "device_ms": round(sum(r[1] for r in picked) / 1e3, 3)}
     out = {"card": smi.stdout.strip().splitlines()[0], "k": args.k,
            "create_proof_wall_s": round(wall, 4),
            "device_time_s": round(device_s, 4),
            "device_busy_share": round(device_s / wall, 4),
+           "all_kernels": summed(rows),
+           "pytorch_elementwise": summed(
+               r for r in rows if "elementwise" in r[0]),
            "top_kernels": listed(rows[:10])}
     if args.show:
         out["shown_kernels"] = listed(r for r in rows if args.show in r[0])

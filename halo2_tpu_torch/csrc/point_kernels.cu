@@ -1,8 +1,10 @@
 // G1 point kernels: one complete point operation per thread (add,
 // add_mixed, double), the MSM scan step that takes its affine operand as
-// packed words with a sign, and two chains of point operations that run
-// whole inside one thread (the MSM's Horner combine over windows, and the
-// double-and-add ladder of a scalar multiplication).  Coordinates are
+// packed words with a sign, the MSM's whole bucket scan of a window group
+// (one thread a lane, the running sum in registers), the MSM's Horner
+// combine over windows (a group of 8 threads a lane, one product a
+// thread), and the double-and-add ladder of a scalar multiplication (one
+// thread a point).  Coordinates are
 // (16, n) limb arrays, see field.cuh.  Plain C interface: every entry point
 // launches on the given stream and returns cudaGetLastError() as an int.
 #include <cuda_runtime.h>
@@ -106,40 +108,243 @@ __global__ void __launch_bounds__(THREADS) add_mixed_packed_kernel(
   }
 }
 
-// acc = T[W-1]; for w = W-2 down to 0: c complete doublings, then a
-// complete add of T[w]; then `tail` more doublings.  One thread a lane,
-// every intermediate in registers.  T[lane, w] of a coordinate sits at
-// t + lane*lane_s + w*win_s, limb rows t_ls apart.  Stands for
-// halo2_tpu/msm/msm.py:152 _combine_windows (a lax.scan over windows) and,
-// with W = 1, c = 0, for the M*E_M doublings of the Abel sum
-// (halo2_tpu/msm/sorted.py:314).  The same formulas in the same order as
-// the plain version, so the projective limbs are equal.  Bound by the
-// latency of one thread's chain, (W - 1)(c + 1) + tail dependent point
-// operations: a few lanes never fill the card.
+// The MSM bucket scan of one window group: the whole of msm/sorted.py's
+// per-group scan in one launch, where the reference launches the Pallas
+// scan step (halo2_tpu/curves/pallas_point.py:73 _add_mixed_packed_call)
+// once per step from a lax.scan (halo2_tpu/msm/sorted.py:144
+// _prefix_scan_group).  One thread a lane (g, b): window g of the group,
+// block b of its B blocks; the block covers the S = n / B sorted positions
+// e = b*S + s, walked in order.  The running projective sum stays in
+// registers.  At each step the thread reads the point's 64-byte row of the
+// points-major packed table by the sort's order (two 16-bit limbs a word:
+// words 0-7 x, 8-15 y), negates y where bit 0 of the sorted key is set,
+// and makes the complete mixed add.
+//
+// It writes only what is read later: the lane's block total after S steps
+// (tot, (16, G, B): the blocks' exclusive scan reads it), and, where a
+// bucket ends (the next sorted digit differs, or the window's last
+// position), the running sum and the block index into the slots of the
+// (G, nb) table from its digit up to the next digit - 1 (nb - 1 at the
+// window's end), so that slot j holds the prefix that ends at the last
+// position whose digit is <= j.  Block 0's lane writes the slots below the
+// window's first digit: the identity at block 0, whose exclusive prefix
+// is the identity.  Digits are key >> 1 < nb; slots >= nb are never
+// written.
+//
+// Bound by operations: 11 products and some 26 additions a position, on
+// G * B lanes (49,152 at the k = 16 proof: 2.9 warps a scheduler), which
+// reaches some 41 % of that bound on an H100 (PERF.md).  Of the forms
+// measured it is the fastest: reading the next row before the add (more
+// registers) and a pair of threads a lane (products split by level, warp
+// shuffles, 80 registers with spills) were slower.  No carry goes through
+// memory; the rows (64 bytes a point, read by G windows) mostly hit L2.
+__global__ void __launch_bounds__(THREADS) msm_scan_kernel(
+    const uint32_t* __restrict__ rows, const int64_t* __restrict__ order,
+    const int32_t* __restrict__ key, int64_t n, int G, int B, int nb,
+    uint32_t* __restrict__ tx, uint32_t* __restrict__ ty,
+    uint32_t* __restrict__ tz, uint32_t* __restrict__ bx,
+    uint32_t* __restrict__ by, uint32_t* __restrict__ bz,
+    int32_t* __restrict__ blk) {
+  const int64_t lanes = (int64_t)G * B;
+  const int64_t S = n / B;
+  const int64_t tab_n = (int64_t)G * nb;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < lanes; i += step) {
+    const int64_t g = i / B;
+    const int b = (int)(i - g * B);
+    const int64_t* ord = order + g * n;
+    const int32_t* ky = key + g * n;
+    const int64_t tab0 = g * nb;
+    Pt acc;                                   // the identity (0 : 1 : 0)
+    acc.x = fe_zero();
+    acc.y = one_mont<FQ>();
+    acc.z = fe_zero();
+    if (b == 0) {
+      const int d0 = min(ky[0] >> 1, nb);
+      for (int j = 0; j < d0; ++j) {
+        store_pt(bx, by, bz, tab_n, tab0 + j, acc);
+        blk[tab0 + j] = 0;
+      }
+    }
+    const int64_t e0 = (int64_t)b * S;
+    int32_t k = ky[e0];
+    int64_t idx = ord[e0];
+    for (int64_t e = e0; e < e0 + S; ++e) {
+      const uint4* row = reinterpret_cast<const uint4*>(rows + idx * 16);
+      const uint4 r0 = row[0], r1 = row[1], r2 = row[2], r3 = row[3];
+      const bool last = e + 1 == n;
+      const int32_t k_next = last ? nb << 1 : ky[e + 1];
+      if (e + 1 < e0 + S) idx = ord[e + 1];
+      Fe x2, y2;
+      x2.w[0] = r0.x; x2.w[1] = r0.y; x2.w[2] = r0.z; x2.w[3] = r0.w;
+      x2.w[4] = r1.x; x2.w[5] = r1.y; x2.w[6] = r1.z; x2.w[7] = r1.w;
+      y2.w[0] = r2.x; y2.w[1] = r2.y; y2.w[2] = r2.z; y2.w[3] = r2.w;
+      y2.w[4] = r3.x; y2.w[5] = r3.y; y2.w[6] = r3.z; y2.w[7] = r3.w;
+      if (k & 1) y2 = neg_mod<FQ>(y2);
+      acc = add_mixed(acc, x2, y2);
+      const int d = k >> 1;
+      const int d_next = min(k_next >> 1, nb);
+      for (int j = d; j < d_next; ++j) {
+        store_pt(bx, by, bz, tab_n, tab0 + j, acc);
+        blk[tab0 + j] = b;
+      }
+      k = k_next;
+    }
+    store_pt(tx, ty, tz, lanes, i, acc);
+  }
+}
+
+// The Horner combine over windows: acc = T[W-1]; for w = W-2 down to 0:
+// c complete doublings, then a complete add of T[w]; then `tail` more
+// doublings.  T[lane, w] of a coordinate sits at t + lane*lane_s +
+// w*win_s, limb rows t_ls apart.  Stands for halo2_tpu/msm/msm.py:152
+// _combine_windows (a lax.scan over windows) and, with W = 1, c = 0, for
+// the M*E_M doublings of the Abel sum (halo2_tpu/msm/sorted.py:314).
+//
+// The chain is (W - 1)(c + 1) + tail dependent point operations and cannot
+// get shorter, and a few lanes never fill the card, so each dependent step
+// is made faster: a lane is a group of HG = 8 threads.  Every formula runs
+// as curves/formulas.py's level schedule (double_levels, add_levels): two
+// levels of independent products (4 and 4 for a doubling, 6 and 6 for an
+// add), one product a thread, the products exchanged through shared
+// memory, the additions between the levels made by every thread of the
+// group.  Each field operation is one of the plain version's, and every
+// result is canonical, so the projective limbs are equal.
+constexpr int HG = 8;
+constexpr int HLANES = THREADS / HG;   // lanes a block
+
+struct Group {
+  Fe (*buf)[2][HG];   // this lane's exchange slots, double-buffered
+  unsigned mask;      // the group's threads in the warp
+  int r;              // this thread's role, 0..HG-1
+  int parity;
+};
+
+// Publishes this thread's product v; returns the HG products of the
+// group's threads.  Two buffers in turn: a thread writes a buffer again
+// only after the next exchange's barrier, which every thread of the group
+// reaches after its reads of this one.
+__device__ __forceinline__ const Fe* exchange(Group& gr, const Fe& v) {
+  Fe* slots = (*gr.buf)[gr.parity];
+  gr.parity ^= 1;
+  slots[gr.r] = v;
+  __syncwarp(gr.mask);
+  return slots;
+}
+
+// by value: a reference to one of four locals would put them on the stack
+__device__ __forceinline__ Fe pick4(int q, const Fe& a, const Fe& b,
+                                    const Fe& c, const Fe& d) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    r.w[k] = q == 0 ? a.w[k] : q == 1 ? b.w[k] : q == 2 ? c.w[k] : d.w[k];
+  return r;
+}
+
+// formulas.py double_levels (RCB15 algorithm 9)
+__device__ __forceinline__ Pt double_grouped(Group& gr, const Pt& p) {
+  const int q = gr.r & 3;
+  const Fe* l1 = exchange(gr, fq_mul(pick4(q, p.y, p.y, p.z, p.x),
+                                     pick4(q, p.y, p.z, p.z, p.y)));
+  Fe t0 = l1[0];
+  const Fe t1 = l1[1];
+  Fe t2 = mul_by_9(l1[2]);
+  const Fe xy = l1[3];
+  Fe z3 = fq_add(t0, t0);
+  z3 = fq_add(z3, z3);
+  z3 = fq_add(z3, z3);
+  const Fe y3 = fq_add(t0, t2);
+  const Fe t2x3 = fq_add(fq_add(t2, t2), t2);
+  t0 = fq_sub(t0, t2x3);
+  const Fe* l2 = exchange(gr, fq_mul(pick4(q, t2, t1, t0, t0),
+                                     pick4(q, z3, z3, y3, xy)));
+  Pt r;
+  r.x = fq_add(l2[3], l2[3]);
+  r.y = fq_add(l2[0], l2[2]);
+  r.z = l2[1];
+  return r;
+}
+
+// formulas.py add_levels (RCB15 algorithm 7)
+__device__ __forceinline__ Pt add_grouped(Group& gr, const Pt& p,
+                                          const Pt& t) {
+  const int q = gr.r < 6 ? gr.r : gr.r - 6;
+  Fe a, b;
+  switch (q) {
+    case 0: a = p.x; b = t.x; break;
+    case 1: a = p.y; b = t.y; break;
+    case 2: a = p.z; b = t.z; break;
+    case 3: a = fq_add(p.x, p.y); b = fq_add(t.x, t.y); break;
+    case 4: a = fq_add(p.y, p.z); b = fq_add(t.y, t.z); break;
+    default: a = fq_add(p.x, p.z); b = fq_add(t.x, t.z); break;
+  }
+  const Fe* l1 = exchange(gr, fq_mul(a, b));
+  Fe t0 = l1[0];
+  Fe t1 = l1[1];
+  Fe t2 = l1[2];
+  const Fe t3 = fq_sub(l1[3], fq_add(t0, t1));
+  const Fe t4 = fq_sub(l1[4], fq_add(t1, t2));
+  Fe y3 = fq_sub(l1[5], fq_add(t0, t2));
+  t0 = fq_add(fq_add(t0, t0), t0);
+  t2 = mul_by_9(t2);
+  const Fe z3 = fq_add(t1, t2);
+  t1 = fq_sub(t1, t2);
+  y3 = mul_by_9(y3);
+  switch (q) {
+    case 0: a = t4; b = y3; break;
+    case 1: a = t3; b = t1; break;
+    case 2: a = y3; b = t0; break;
+    case 3: a = t1; b = z3; break;
+    case 4: a = t0; b = t3; break;
+    default: a = z3; b = t4; break;
+  }
+  const Fe* l2 = exchange(gr, fq_mul(a, b));
+  Pt r;
+  r.x = fq_sub(l2[1], l2[0]);
+  r.y = fq_add(l2[3], l2[2]);
+  r.z = fq_add(l2[5], l2[4]);
+  return r;
+}
+
+__device__ __forceinline__ Pt load_window(const uint32_t* tx,
+                                          const uint32_t* ty,
+                                          const uint32_t* tz, int64_t t_ls,
+                                          int64_t at) {
+  Pt p;
+  p.x = load_fe(tx, t_ls, at);
+  p.y = load_fe(ty, t_ls, at);
+  p.z = load_fe(tz, t_ls, at);
+  return p;
+}
+
 __global__ void __launch_bounds__(THREADS) point_horner_kernel(
     const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
     const uint32_t* __restrict__ tz, int64_t t_ls, int64_t lane_s,
     int64_t win_s, int64_t lanes, int W, int c, int tail,
     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
     uint32_t* __restrict__ oz) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < lanes; i += step) {
+  __shared__ Fe xch[HLANES][2][HG];
+  const int slot = threadIdx.x / HG;
+  Group gr;
+  gr.buf = &xch[slot];
+  gr.mask = 0xFFu << (threadIdx.x % 32 / HG * HG);
+  gr.r = threadIdx.x % HG;
+  gr.parity = 0;
+  const int64_t step = (int64_t)gridDim.x * HLANES;
+  // every thread of a group takes the same lanes, so the group stays whole
+  for (int64_t i = (int64_t)blockIdx.x * HLANES + slot; i < lanes;
+       i += step) {
     const int64_t base = i * lane_s;
-    Pt acc;
-    acc.x = load_fe(tx, t_ls, base + (int64_t)(W - 1) * win_s);
-    acc.y = load_fe(ty, t_ls, base + (int64_t)(W - 1) * win_s);
-    acc.z = load_fe(tz, t_ls, base + (int64_t)(W - 1) * win_s);
+    Pt acc = load_window(tx, ty, tz, t_ls, base + (int64_t)(W - 1) * win_s);
     for (int w = W - 2; w >= 0; --w) {
-      for (int k = 0; k < c; ++k) acc = double_complete(acc);
-      Pt t;
-      t.x = load_fe(tx, t_ls, base + (int64_t)w * win_s);
-      t.y = load_fe(ty, t_ls, base + (int64_t)w * win_s);
-      t.z = load_fe(tz, t_ls, base + (int64_t)w * win_s);
-      acc = add_complete(acc, t);
+      const Pt t = load_window(tx, ty, tz, t_ls, base + (int64_t)w * win_s);
+      for (int k = 0; k < c; ++k) acc = double_grouped(gr, acc);
+      acc = add_grouped(gr, acc, t);
     }
-    for (int k = 0; k < tail; ++k) acc = double_complete(acc);
-    store_pt(ox, oy, oz, lanes, i, acc);
+    for (int k = 0; k < tail; ++k) acc = double_grouped(gr, acc);
+    if (gr.r == 0) store_pt(ox, oy, oz, lanes, i, acc);
   }
 }
 
@@ -184,15 +389,16 @@ extern "C" {
 
 // Resident blocks of THREADS threads a multiprocessor can hold for kernel
 // `which` (0 add, 1 add_mixed, 2 double, 3 add_mixed_packed, 4 horner,
-// 5 ladder), from the CUDA occupancy calculator.
+// 5 ladder, 6 msm_scan), from the CUDA occupancy calculator.
 int h2_point_occupancy(int which, int* blocks) {
   const void* fns[] = {(const void*)point_add_kernel,
                        (const void*)point_add_mixed_kernel,
                        (const void*)point_double_kernel,
                        (const void*)add_mixed_packed_kernel,
                        (const void*)point_horner_kernel,
-                       (const void*)point_ladder_kernel};
-  if (which < 0 || which >= 6) return (int)cudaErrorInvalidValue;
+                       (const void*)point_ladder_kernel,
+                       (const void*)msm_scan_kernel};
+  if (which < 0 || which >= 7) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, fns[which], THREADS, 0);
 }
@@ -245,10 +451,28 @@ int h2_point_horner(const void* tx, const void* ty, const void* tz,
                     void* oy, void* oz, void* stream) {
   if (lanes <= 0) return 0;
   if (W < 1 || c < 0 || tail < 0) return (int)cudaErrorInvalidValue;
-  point_horner_kernel<<<grid_for(lanes), THREADS, 0, (cudaStream_t)stream>>>(
+  point_horner_kernel<<<grid_for(lanes * HG), THREADS, 0,
+                        (cudaStream_t)stream>>>(
       (const uint32_t*)tx, (const uint32_t*)ty, (const uint32_t*)tz, t_ls,
       lane_s, win_s, lanes, W, c, tail, (uint32_t*)ox, (uint32_t*)oy,
       (uint32_t*)oz);
+  return (int)cudaGetLastError();
+}
+
+// rows (points, 16) packed, 16-byte aligned; order (G, n) int64 and key
+// (G, n) int32 sorted per window; n a multiple of B; outputs tot (16, G, B)
+// x 3, tab (16, G, nb) x 3, blk (G, nb).
+int h2_msm_scan(const void* rows, const void* order, const void* key,
+                long long n, int G, int B, int nb, void* tx, void* ty,
+                void* tz, void* bx, void* by, void* bz, void* blk,
+                void* stream) {
+  if (G <= 0 || n <= 0) return 0;
+  if (B < 1 || n % B != 0 || nb < 1) return (int)cudaErrorInvalidValue;
+  msm_scan_kernel<<<grid_for((int64_t)G * B), THREADS, 0,
+                    (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, (const int64_t*)order, (const int32_t*)key, n,
+      G, B, nb, (uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tz, (uint32_t*)bx,
+      (uint32_t*)by, (uint32_t*)bz, (int32_t*)blk);
   return (int)cudaGetLastError();
 }
 

@@ -12,15 +12,20 @@ place of one Pallas TPU kernel of halo2_tpu/curves/pallas_point.py:
                     x, rows 8-15 y), negate y where the sign is set, complete
                     mixed add onto the carry
 
-and two that run a chain of point operations inside one thread, where the
+and three that run a chain of point operations in one launch, where the
 JAX package compiles it into one `lax.scan`:
 
+  msm_scan     the MSM's bucket scan of one window group (msm/sorted.py
+               `window_totals`): every scan step of `_add_mixed_packed_call`
+               with the running sums in registers, writing the block totals
+               and the bucket-boundary prefixes
   horner       `g1.horner`: the MSM's combine over windows (msm/msm.py
                `_combine_windows`) and the Abel sum's M * E_M doublings
-               (msm/sorted.py), one launch
-  scalar_mul   the double-and-add ladder of `g1.scalar_mul`, one launch
+               (msm/sorted.py), a group of 8 threads a lane
+  scalar_mul   the double-and-add ladder of `g1.scalar_mul`
 
-Their plain versions are the composed loops `g1.plain_horner` and
+Their plain versions are `plain_msm_scan` (the steps as a loop of
+`plain_add_mixed_packed`) and the composed loops `g1.plain_horner` and
 `g1.plain_scalar_mul`, on `plain_point`.
 
 What bounds them on an H100: an add is 12 Montgomery products of 264
@@ -31,11 +36,14 @@ arithmetic a point: about even, so occupancy decides.  One point per
 thread, all intermediates in registers (three 256-bit coordinates in, about
 a dozen live values); the field product is one non-inlined function with
 its operands in registers (csrc/point.cuh), which sets the registers, the
-stack and so the resident blocks.
-The chains are bound by one thread's latency when there are few lanes.
+stack and so the resident blocks.  The scan is as bound by operations as
+an add.  The Horner chain is bound by the latency of its dependent point
+operations: a group of threads runs each operation's products side by
+side.
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version
-only for tensors on the CPU; the chain wrappers take CUDA tensors only.
+only for tensors on the CPU; `horner` and `scalar_mul` take CUDA tensors
+only.
 `launch_counts` counts launches.
 
 The plain versions follow curves/formulas.py operation for operation, but
@@ -59,8 +67,8 @@ N_LIMBS = 16
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 
-launch_counts = {"point_op": 0, "add_mixed_packed": 0, "horner": 0,
-                 "ladder": 0}
+launch_counts = {"point_op": 0, "add_mixed_packed": 0, "msm_scan": 0,
+                 "horner": 0, "ladder": 0}
 
 _N_IN = {"add": 6, "add_mixed": 5, "double": 3}
 
@@ -187,6 +195,51 @@ def plain_add_mixed_packed(carry, packed_xy, sign):
     return plain_point_op("add_mixed", list(carry) + [qx, qy])
 
 
+def bucket_ends(d, nb: int):
+    """ends[g, j] = (# of digits <= j in row g) - 1: in a row sorted by
+    digit, the last position whose digit is <= j (-1 when there is none).
+    d: (G, n) digits below nb, in any order.  A histogram of the digits
+    (one bincount over all rows) and a running sum."""
+    G = d.shape[0]
+    offs = torch.arange(G, device=d.device, dtype=torch.int64)[:, None] * nb
+    counts = torch.bincount((d.to(torch.int64) + offs).reshape(-1),
+                            minlength=G * nb).reshape(G, nb)
+    return torch.cumsum(counts, dim=1) - 1
+
+
+def plain_msm_scan(rows, order, key, block: int, nb: int):
+    """`msm_scan`'s plain version: the S = n / block scan steps as a loop
+    of `plain_add_mixed_packed` at width G * block (the scan layout: lane
+    (g, b) adds sorted position b*S + s at step s), then the running sums
+    at the bucket ends picked by `bucket_ends`."""
+    G, n = key.shape
+    S = n // block
+    F = fq(rows.device)
+    idx = order.reshape(G, block, S).permute(2, 0, 1)         # (S, G, B)
+    pk = rows[idx].permute(0, 3, 1, 2).reshape(S, N_LIMBS, G * block)
+    sg = (key & 1).reshape(G, block, S).permute(2, 0, 1).reshape(S, -1)
+    zero = F.zeros((G * block,))
+    carry = (zero, F.ones((G * block,)), zero)
+    steps = []
+    for s in range(S):
+        carry = plain_add_mixed_packed(carry, pk[s], sg[s])
+        steps.append(carry)
+    totals = tuple(c.reshape(N_LIMBS, G, block) for c in carry)
+    ends = bucket_ends(key >> 1, nb)                          # (G, nb)
+    found = ends >= 0
+    e = ends.clamp(min=0)
+    b_idx = torch.div(e, S, rounding_mode="floor")
+    lane = torch.arange(G, device=key.device)[:, None] * block + b_idx
+    ident = (F.zeros((G, nb)), F.ones((G, nb)), F.zeros((G, nb)))
+    table = tuple(
+        torch.where(found[None],
+                    torch.stack([st[c] for st in steps])[e % S, :, lane]
+                    .permute(2, 0, 1), ic)
+        for c, ic in zip(range(3), ident))
+    blk = torch.where(found, b_idx, 0).to(torch.int32)
+    return totals, table, blk
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -203,10 +256,11 @@ def typed(lib):
         [vp] * 4
     lib.h2_point_ladder.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, vp, vp,
                                     ll, vp]
+    lib.h2_msm_scan.argtypes = [vp] * 3 + [ll] + [ci] * 3 + [vp] * 8
     lib.h2_point_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
     for fn in (lib.h2_point_add, lib.h2_point_add_mixed, lib.h2_point_double,
                lib.h2_add_mixed_packed, lib.h2_point_horner,
-               lib.h2_point_ladder, lib.h2_point_occupancy):
+               lib.h2_point_ladder, lib.h2_msm_scan, lib.h2_point_occupancy):
         fn.restype = ci
     return lib
 
@@ -217,7 +271,7 @@ def _lib():
 
 
 OCCUPANCY_KERNELS = ("add", "add_mixed", "double", "add_mixed_packed",
-                     "horner", "ladder")
+                     "horner", "ladder", "msm_scan")
 
 
 def occupancy(lib=None) -> dict:
@@ -316,6 +370,60 @@ def add_mixed_packed(carry, packed_xy: torch.Tensor, sign: torch.Tensor):
                  *[o.data_ptr() for o in out], n)
     launch_counts["add_mixed_packed"] += 1
     return out
+
+
+def msm_scan(rows: torch.Tensor, order: torch.Tensor, key: torch.Tensor,
+             block: int, nb: int):
+    """The bucket scan of one window group, one launch for CUDA tensors.
+
+    rows: (N, 16) int32, one 64-byte row a point (`pack_xy` words, x then
+    y); order: (G, n) int64 point indices below N and key: (G, n) int32
+    (digit << 1) | sign, both sorted by key along each window; n a
+    multiple of `block`; digits below nb.  Lane (g, b) adds the sorted
+    positions b*S + s, s < S = n / block, in order, from the identity.
+
+    Returns (totals, table, blk): totals, 3 coordinates of (16, G, block),
+    each lane's sum; table, 3 coordinates of (16, G, nb), and blk (G, nb)
+    int32: for digit j, the running sum at the last position whose digit
+    is <= j and the block that holds it (the identity and block 0 where
+    no digit is <= j)."""
+    device = rows.device
+    if rows.dim() != 2 or rows.shape[1] != N_LIMBS:
+        raise ValueError(f"msm_scan: rows must be (N, 16), got "
+                         f"{tuple(rows.shape)}")
+    if key.dim() != 2:
+        raise ValueError("msm_scan: key must be (G, n)")
+    G, n = key.shape
+    if block < 1 or n % block or nb < 1:
+        raise ValueError(f"msm_scan: n = {n} is no multiple of block = "
+                         f"{block}, or nb = {nb} < 1")
+    _check("msm_scan rows", rows, rows.shape, device)
+    _check("msm_scan key", key, (G, n), device)
+    if order.dtype != torch.int64 or tuple(order.shape) != (G, n) \
+            or order.device != device:
+        raise ValueError("msm_scan: order must be int64 (G, n) on the "
+                         "device of rows")
+    if device.type == "cpu":
+        return plain_msm_scan(rows, order, key, block, nb)
+    if device.type != "cuda":
+        raise ValueError(f"msm_scan: unsupported device {device}")
+    if not (rows.is_contiguous() and order.is_contiguous()
+            and key.is_contiguous()) or rows.data_ptr() % 16:
+        raise ValueError("msm_scan: operands must be contiguous, rows "
+                         "16-byte aligned")
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    totals = tuple(empty(N_LIMBS, G, block) for _ in range(3))
+    table = tuple(empty(N_LIMBS, G, nb) for _ in range(3))
+    blk = empty(G, nb)
+    if G and n:
+        build.launch(device, _lib().h2_msm_scan, rows.data_ptr(),
+                     order.data_ptr(), key.data_ptr(), n, G, block, nb,
+                     *[t.data_ptr() for t in totals],
+                     *[t.data_ptr() for t in table], blk.data_ptr())
+        launch_counts["msm_scan"] += 1
+    return totals, table, blk
 
 
 def _cuda_only(name: str, device):

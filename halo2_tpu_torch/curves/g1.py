@@ -20,6 +20,7 @@ import torch
 from halo2_tpu_torch.curves import cuda_point
 from halo2_tpu_torch.fields.bn254 import fq
 from halo2_tpu_torch.fields.limbs import N_LIMBS, is_zero, to_numpy, to_tensor
+from halo2_tpu_torch.utils import profiling
 
 
 def identity(batch_shape, device):
@@ -104,7 +105,8 @@ def horner(totals, c_bits: int, tail_doubles: int = 0):
     3 coords of (16, *lanes): acc = T[W-1], then for w = W-2 down to 0,
     c_bits doublings and an add of T[w]; then tail_doubles more doublings.
     One kernel launch for CUDA tensors (curves/cuda_point.py), the plain
-    version on the CPU."""
+    version on the CPU; counted as `horner_calls`."""
+    profiling.incr("horner_calls")
     if totals[0].device.type == "cuda":
         return cuda_point.horner(totals, c_bits, tail_doubles)
     return plain_horner(totals, c_bits, tail_doubles)

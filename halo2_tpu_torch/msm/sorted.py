@@ -1,16 +1,16 @@
 """Sort-based Pippenger bucket accumulation.
 
   per window:  sort points by digit (device sort) ->
-               blocked prefix scan of point additions (one launch of the
-               packed mixed-add kernel per scan step, n adds in all — the
-               Pippenger optimum) ->
+               blocked prefix scan of point additions (n adds in all — the
+               Pippenger optimum) that writes the prefix at every bucket
+               boundary ->
                bucket sums = differences of prefix values at bucket
                boundaries ->
                sum_b b*B_b = M*E_M - sum_{b<M} E_b  (Abel summation)
 
-  windows are processed in groups that share one scan (group * block points
-  per launch).  No scatter, no index-dependent writes; any digit
-  distribution (including the all-equal degenerate case) is handled.
+  windows are processed in groups that share one scan: one launch of the
+  scan kernel (`cuda_point.msm_scan`) a group, group * block lanes.  Any
+  digit distribution (including the all-equal degenerate case) is handled.
 """
 
 from __future__ import annotations
@@ -20,15 +20,19 @@ import torch
 from halo2_tpu_torch.curves import cuda_point, g1
 from halo2_tpu_torch.fields.bn254 import fr
 from halo2_tpu_torch.fields.limbs import LIMB_BITS
+from halo2_tpu_torch.utils import profiling
 
 # signed-window configuration: c bits per window, digits recoded into
 # [-2^(c-1), 2^(c-1)] so the bucket table holds 2^(c-1)+1 entries (|digit|;
 # the sign rides on the point's y).
 SIGNED_C_BITS = 11
 
-# device memory the scan of one window group may take (the prefix buffer
-# and the sorted point copies cost about 320 bytes a point and window)
+# device memory the scan of one window group may take, and what a group
+# holds a point and window at its peak (the sort key, its sorted copy and
+# the int64 order, the sort's scratch): 61.7 bytes at 2^18 points and 30.2
+# at 2^20 in groups of 24 windows on an H100 (examples/torch_msm_memory.py)
 GROUP_MEM_BUDGET = 3 << 30
+GROUP_BYTES_PER_POINT_WINDOW = 64
 
 
 def _raw_digits_c(scalars_std, num_windows: int, c: int):
@@ -84,27 +88,6 @@ def pack_xy(px, py):
         hi = torch.where(hi >= 0x8000, hi - 0x10000, hi)
         return (hi * (1 << LIMB_BITS)) | c[0::2]             # (8, n)
     return torch.cat([pack(px), pack(py)], dim=0)
-
-
-def _prefix_scan_group(pk, sg):
-    """Prefix sums over sorted points in scan layout.
-
-    pk: (S, 16, G, B) packed affine words; block b covers sorted positions
-    [b*S, (b+1)*S), step s adds position b*S+s; sg: (S, G, B) int32 sign
-    flags (negate y).  One launch of the packed mixed-add kernel per step
-    (unpack + conditional negate + complete mixed add).
-
-    Returns (intra: 3 coords of (16, S, G, B), the running sums after each
-    step; block_excl: 3 coords of (16, G, B))."""
-    S, _, G, B = pk.shape
-    carry = g1.identity((G, B), pk.device)
-    steps = []
-    for s in range(S):
-        carry = cuda_point.add_mixed_packed(carry, pk[s], sg[s])
-        steps.append(carry)
-    intra = tuple(torch.stack([st[c] for st in steps], dim=1)
-                  for c in range(3))
-    return intra, _exclusive_scan_points(carry)
 
 
 def _shift_fill_identity(pts, s):
@@ -168,35 +151,16 @@ def _sum_points_lastaxis(pts):
     return tuple(c[..., 0] for c in pts)
 
 
-def _bucket_ends(d, nb: int):
-    """ends[g, b] = (# of digits <= b) - 1 — the bucket-boundary positions
-    in the sorted order (-1 when the prefix is empty).  A histogram of the
-    digits (one bincount over all windows) and a running sum."""
-    G = d.shape[0]
-    offs = torch.arange(G, device=d.device, dtype=torch.int64)[:, None] * nb
-    counts = torch.bincount((d.to(torch.int64) + offs).reshape(-1),
-                            minlength=G * nb).reshape(G, nb)
-    return torch.cumsum(counts, dim=1) - 1
+def _gather_boundary_prefix(table, blk, excl):
+    """Prefix point at every bucket boundary: E_j = excl[blk_j] + table_j.
 
-
-def _gather_boundary_prefix(intra, excl, ends, block: int, n: int):
-    """Prefix point at sorted position e (may be -1 -> identity).
-
-    intra: 3 coords of (16, S, G, B); excl: 3 x (16, G, B); ends: (G, nb)
-    int64 positions.  position e -> block b = e // S, step s = e % S;
-    prefix[e] = excl[b] + intra[s, b]."""
-    S = n // block
-    G, nb = ends.shape
-    b_idx = torch.clamp(torch.div(ends, S, rounding_mode="floor"),
-                        0, block - 1)
-    s_idx = torch.clamp(torch.remainder(ends, S), 0, S - 1)
-    g_iota = torch.arange(G, device=ends.device)[:, None].expand(G, nb)
-    intra_pt = tuple(c[:, s_idx, g_iota, b_idx] for c in intra)
-    excl_pt = tuple(c[:, g_iota, b_idx] for c in excl)
-    summed = g1.add(intra_pt, excl_pt)
-    # positions < 0 mean "empty prefix" -> identity
-    ident = g1.identity((G, nb), ends.device)
-    return g1.select(ends >= 0, summed, ident)
+    table: 3 coords of (16, G, nb) and blk: (G, nb) int32, the scan's
+    running sums at the bucket ends and their blocks (`cuda_point.msm_scan`;
+    where no digit is <= j, the identity at block 0, whose exclusive prefix
+    is the identity, so E_j is the identity); excl: 3 x (16, G, B), the
+    blocks' exclusive prefixes."""
+    g_iota = torch.arange(blk.shape[0], device=blk.device)[:, None]
+    return g1.add(table, tuple(c[:, g_iota, blk] for c in excl))
 
 
 def _abel_window_totals(e_pts, nb: int):
@@ -242,7 +206,6 @@ def window_totals(px, py, scalars_mont, max_bits: int, group: int,
     nb = (1 << (c - 1)) + 1
     w_pad = (-num_windows) % group
     W = num_windows + w_pad
-    S = n // block
 
     scal = fr(device).from_mont(scalars_mont)
     mag, neg = _signed_digits(scal, num_windows, c)   # (W0, n) each
@@ -250,24 +213,21 @@ def window_totals(px, py, scalars_mont, max_bits: int, group: int,
         zeros = torch.zeros((w_pad, n), dtype=torch.int32, device=device)
         mag = torch.cat([mag, zeros], dim=0)
         neg = torch.cat([neg, zeros], dim=0)
-    packed = pack_xy(px, py)                          # (16, n)
+    rows = pack_xy(px, py).t().contiguous()           # (n, 16): a row a point
 
     totals = []
     for g0 in range(0, W, group):
-        d = mag[g0:g0 + group]                        # (G, n) magnitudes
         # fold the sign bit into the sort key: the sorted sign flags fall
-        # out of the sort.  Order within a bucket is irrelevant (bucket
-        # sums commute).
-        key_sorted, order = torch.sort((d << 1) | neg[g0:g0 + group], dim=1)
-        # permute the INDICES into scan layout before gathering, so the
-        # point gather lands directly as (16, S, G, B)
-        idx_scan = order.reshape(group, block, S).permute(2, 0, 1)
-        pk = packed[:, idx_scan].permute(1, 0, 2, 3).contiguous()
-        sg = (key_sorted & 1).reshape(group, block, S).permute(
-            2, 0, 1).contiguous()
-        intra, excl = _prefix_scan_group(pk, sg)
-        ends = _bucket_ends(d, nb)
-        e_pts = _gather_boundary_prefix(intra, excl, ends, block, n)
+        # out of the sort.  The sort is stable, as the reference's, so the
+        # additions run in the reference's order.
+        key_sorted, order = torch.sort(
+            (mag[g0:g0 + group] << 1) | neg[g0:g0 + group], dim=1,
+            stable=True)
+        profiling.incr("msm_window_groups")
+        blk_totals, table, blk = cuda_point.msm_scan(rows, order, key_sorted,
+                                                     block, nb)
+        e_pts = _gather_boundary_prefix(
+            table, blk, _exclusive_scan_points(blk_totals))
         totals.append(_abel_window_totals(e_pts, nb))  # 3 x (16, G)
     return tuple(torch.cat([t[c] for t in totals], dim=1) for c in range(3))
 
@@ -279,7 +239,8 @@ def auto_group(n: int, num_windows: int) -> int:
     step, ladder level, Abel fold) then runs at num_windows * block points
     a launch, and the round count stops scaling with the window count.  The
     cap is device memory, so the group shrinks for very large n."""
-    g_max = max(1, min(num_windows, GROUP_MEM_BUDGET // (320 * max(n, 1))))
+    per_window = GROUP_BYTES_PER_POINT_WINDOW * max(n, 1)
+    g_max = max(1, min(num_windows, GROUP_MEM_BUDGET // per_window))
     if g_max >= num_windows:
         return num_windows
     # least padding waste among feasible sizes (padded windows are dead work)

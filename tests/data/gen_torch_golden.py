@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Generate tests/data/torch_golden_proof.json and
-tests/data/torch_golden_horner.json from the JAX package.
+"""Generate tests/data/torch_golden_proof.json,
+tests/data/torch_golden_horner.json and tests/data/torch_golden_scan.json
+from the JAX package.
 
     JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py
 
@@ -18,8 +19,18 @@ one of them with an identity window) on numpy-seeded projective points:
 the projective limbs the port's `_combine_windows` must reproduce
 (tests/test_torch_chains.py).  The JAX call compiles for about 20 s on
 the CPU, so the tests read its result from here.
+
+The third holds the MSM's bucket scan of a window group
+(`halo2_tpu.msm.sorted._prefix_scan_group`, `_bucket_ends` and
+`_gather_boundary_prefix`, c = 4, block 4) on numpy-seeded points and
+digits: for batches of windows at S = 5 and S = 1 steps a block, the
+boundary prefixes E and the block totals as projective limbs, which the
+port's scan and `window_totals` must reproduce
+(tests/test_torch_msm_scan.py).  Each batch shape compiles for some 35 s
+on the CPU.
 """
 
+import functools
 import importlib
 import io
 import json
@@ -43,6 +54,16 @@ PARAMS_SEED = 7
 A, B = 3, 5
 PROVER_SEEDS = (0, 1)
 HORNER_C, HORNER_W, HORNER_LANES, HORNER_SEED = 4, 3, 2, 3
+SCAN_C, SCAN_BLOCK, SCAN_SEED, SCAN_MAX_BITS = 4, 4, 5, 16
+# (steps a block, the digits of each window of the batch): one of
+# "random", "one bucket" (every digit equal), "0 and top" (digits 0 and
+# 2^(c-1) only), "all negative" (every sign set), "gaps" (empty buckets
+# between full ones), "scalars" (the signed digits of random scalars below
+# 2^SCAN_MAX_BITS, all windows of them)
+SCAN_BATCHES = ((5, ("random", "one bucket", "0 and top", "all negative",
+                     "gaps")),
+                (5, ("scalars",)),
+                (1, ("random", "one bucket", "gaps")))
 
 
 def params_bytes(params) -> bytes:
@@ -106,6 +127,95 @@ def horner_golden() -> dict:
             "inputs": lanes, "outputs_mont_words": out}
 
 
+def _scan_windows(rng, kinds, n):
+    """(mag, neg, scalars): (G, n) digits and signs of each window kind;
+    the scalars (as ints) where the kind is "scalars"."""
+    import jax.numpy as jnp
+    from halo2_tpu.fields.limbs import ints_to_limbs_np
+    from halo2_tpu.msm import sorted as jsorted
+    nb = (1 << (SCAN_C - 1)) + 1
+    if kinds == ("scalars",):
+        scalars = [int(v) for v in rng.integers(0, 1 << SCAN_MAX_BITS, n)]
+        scalars[:3] = [0, 1, (1 << SCAN_MAX_BITS) - 1]
+        w = jsorted.num_windows_for(SCAN_MAX_BITS, SCAN_C)
+        mag, neg = jsorted._signed_digits(
+            jnp.asarray(ints_to_limbs_np(scalars)), w, SCAN_C)
+        return np.asarray(mag), np.asarray(neg).astype(np.int32), scalars
+    mags, negs = [], []
+    for kind in kinds:
+        neg = rng.integers(0, 2, n)
+        if kind == "one bucket":
+            mag = np.full(n, 3)
+        elif kind == "0 and top":
+            mag = rng.integers(0, 2, n) * (nb - 1)
+        elif kind == "all negative":
+            mag, neg = rng.integers(0, nb, n), np.ones(n, np.int64)
+        elif kind == "gaps":
+            mag = np.array([2, 6])[rng.integers(0, 2, n)]
+        else:
+            mag = rng.integers(0, nb, n)
+        mags.append(mag)
+        negs.append(neg)
+    return (np.stack(mags).astype(np.int32), np.stack(negs).astype(np.int32),
+            None)
+
+
+def scan_golden() -> dict:
+    """The JAX package's bucket scan of SCAN_BATCHES: per batch the inputs
+    (points, digits, signs, the stable sort's order) and the outputs as the
+    integers the Montgomery limb words spell."""
+    import jax
+    import jax.numpy as jnp
+    from halo2_tpu.curves import g1 as jg1
+    from halo2_tpu.curves import host
+    from halo2_tpu.fields.limbs import N_LIMBS, limbs_to_int
+    from halo2_tpu.msm import sorted as jsorted
+
+    @functools.partial(jax.jit, static_argnums=(3, 4))
+    def scan(rows, order, key, block, nb):
+        G, n = key.shape
+        S = n // block
+        idx = order.reshape(G, block, S).transpose(2, 0, 1)
+        pk = jnp.take(rows, idx.reshape(-1), axis=0).reshape(
+            S, G, block, N_LIMBS)
+        sg = (key & 1).astype(bool).reshape(G, block, S).transpose(2, 0, 1)
+        intra, excl = jsorted._prefix_scan_group(pk, sg)
+        ends = jsorted._bucket_ends(key >> 1, nb)
+        e_pts = jsorted._gather_boundary_prefix(intra, excl, ends, block, n)
+        return e_pts, tuple(c[-1].transpose(2, 0, 1) for c in intra)
+
+    def words(c):
+        """(16, *B) limbs -> nested lists over *B of the ints they spell."""
+        c = np.asarray(c)
+        if c.ndim == 2:
+            return [limbs_to_int(c[:, i]) for i in range(c.shape[1])]
+        return [words(c[:, i]) for i in range(c.shape[1])]
+
+    rng = np.random.default_rng(SCAN_SEED)
+    nb = (1 << (SCAN_C - 1)) + 1
+    batches = []
+    for S, kinds in SCAN_BATCHES:
+        n = S * SCAN_BLOCK
+        pts = [host.mul(host.G1_GEN, int(k))
+               for k in rng.integers(1, 1 << 62, n)]
+        mag, neg, scalars = _scan_windows(rng, kinds, n)
+        key = (mag << 1) | neg
+        order = np.argsort(key, axis=1, kind="stable")
+        dev = jg1.encode_points(pts)
+        rows = np.asarray(jsorted._pack_xy(dev[0], dev[1])).T.copy()
+        e_pts, totals = scan(jnp.asarray(rows), jnp.asarray(order),
+                             jnp.asarray(np.take_along_axis(key, order, 1)),
+                             SCAN_BLOCK, nb)
+        batches.append({
+            "S": S, "kinds": list(kinds), "points": [list(p) for p in pts],
+            "mag": mag.tolist(), "neg": neg.tolist(),
+            "order": order.tolist(), "scalars": scalars,
+            "e_pts_mont_words": [words(c) for c in e_pts],
+            "block_totals_mont_words": [words(c) for c in totals]})
+    return {"c": SCAN_C, "block": SCAN_BLOCK, "seed": SCAN_SEED,
+            "max_bits": SCAN_MAX_BITS, "batches": batches}
+
+
 def _write(name: str, record: dict):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
     with open(path, "w") as fh:
@@ -114,6 +224,7 @@ def _write(name: str, record: dict):
 
 
 def main():
+    _write("torch_golden_scan.json", scan_golden())
     _write("torch_golden_horner.json", horner_golden())
     params = Params.unsafe_setup(K, seed=PARAMS_SEED)
     vk, pk = keygen(params, SimpleCircuit())

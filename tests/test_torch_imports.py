@@ -25,7 +25,7 @@ MODULES = sorted(
                                           "halo2_tpu_torch."))
 # scripts beside the package, imported by name from the repo's root
 SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
-           "examples.torch_profile_prove"]
+           "examples.torch_profile_prove", "examples.torch_msm_memory"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys

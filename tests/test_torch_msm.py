@@ -17,7 +17,7 @@ from halo2_tpu.curves import g1 as jg1
 from halo2_tpu.fields.bn254 import Fr as JFr
 from halo2_tpu.msm import msm_host_result as j_msm_host_result
 
-from halo2_tpu_torch.curves import g1, host
+from halo2_tpu_torch.curves import cuda_point, g1, host
 from halo2_tpu_torch.fields import limbs as tl
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS as R
 from halo2_tpu_torch.fields.bn254 import fr
@@ -106,13 +106,16 @@ def test_num_windows_for(bits, c, want):
 
 def test_bucket_ends_and_block_rules():
     d = torch.tensor([[0, 2, 2, 1], [3, 3, 3, 3]], dtype=torch.int32)
-    ends = msm_sorted._bucket_ends(d, 5)
+    ends = cuda_point.bucket_ends(d, 5)
     assert ends.tolist() == [[0, 1, 3, 3, 3], [-1, -1, -1, 3, 3]]
     assert [_block_for(n) for n in (1, 2, 13, 16, 1000, 2048, 5000)] == \
         [1, 2, 16, 16, 1024, 2048, 2048]
     assert [window_bits_for(b) for b in (1, 16, 1024, 2048)] == [4, 4, 10, 11]
     assert msm_sorted.auto_group(1 << 16, 24) == 24
-    assert msm_sorted.auto_group(1 << 22, 24) < 24
+    # 64 bytes a point and window: one group to 2^21 points, two of 12 at
+    # 2^22
+    assert msm_sorted.auto_group(1 << 21, 24) == 24
+    assert msm_sorted.auto_group(1 << 22, 24) == 12
 
 
 def test_exclusive_scan_and_tree_sum_of_points():
