@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of halo2_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--k K] [--phases env,kernels,golden,prove,dft]
+    python3 chip_smoke.py [--k K] [--phases env,kernels,golden,prove,args,dft]
 
 Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
 
   kernels  holds every kernel against its plain PyTorch version on the card
            (exact equality of the limb words: the tolerance is zero), at the
-           shapes the k-row proof gives it and at ragged ones, and times it
-           with CUDA events beside its bound: `ms` around 20 launches from
-           Python, `device_ms` from the same 20 launches replayed from a
-           CUDA graph.  The chain entry points (pow / inv, the prefix-product
-           scan, the MSM's bucket scan, the Horner combine, the scalar
-           ladder) are held to their composed plain versions at the proof's
-           shapes and at edge cases, and each public function is shown to
-           make its one launch (three for the prefix-product scan);
+           shapes the k-row proof of each driven path (prove, args) gives
+           it and at ragged ones, and times it with CUDA events beside its
+           bound: `ms` around 20 launches from Python, `device_ms` from the
+           same 20 launches replayed from a CUDA graph.  The chain entry
+           points (pow / inv, the prefix-product scan, the MSM's bucket
+           scan, the Horner combine, the scalar ladder) are held to their
+           composed plain versions at the proofs' shapes and at edge cases,
+           and each public function is shown to make its one launch (three
+           for the prefix-product scan);
   golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
-           its seeds and compares the proof bytes;
+           its seeds, and each circuit of tests/data/torch_golden_args.json
+           (a logup lookup over two input sets and a shuffle, K = 5; a range
+           check, K = 5; every argument, K = 9) with its seed, and compares
+           the pinned vks and the proof bytes; the port's verifier must
+           accept each;
   prove    unsafe_setup -> keygen -> create_proof -> verify_proof for a
            row-filling chain of mul gates at 2^k rows, with every kernel's
            launch count set to 0 just before and read just after (all
            counters printed, with the K1 and K4 family totals; the MSM's
            bucket scan launched once a window group, the Horner kernel once
            a call, the 1:1 scan step `add_mixed_packed` never); a proof
-           with one byte flipped must be rejected;
+           with one byte flipped and a wrong instance must be rejected;
+  args     the same for AllArgsCircuit over every usable row of 2^k (gate
+           with a compressed selector, permutation, a shared-table logup
+           lookup with two input sets, a shuffle of two units, a range
+           check), proved with FlatFloorPlanner, with the same checks and
+           the peak device memory;
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
            to 0 just before and read just after, its output against the host
@@ -49,10 +59,12 @@ import time
 
 import torch
 
-from halo2_tpu_torch.circuits import MulChainCircuit, SimpleCircuit
+from halo2_tpu_torch.circuit import FlatFloorPlanner
+from halo2_tpu_torch.circuits import (AllArgsCircuit, MulChainCircuit,
+                                      SimpleCircuit)
 from halo2_tpu_torch.curves import cuda_point, g1
 from halo2_tpu_torch.fields import cuda_ops
-from halo2_tpu_torch.fields.bn254 import fq, fr
+from halo2_tpu_torch.fields.bn254 import FR_MODULUS as P, fq, fr
 from halo2_tpu_torch.fields.limbs import N_LIMBS, limbs_to_ints
 from halo2_tpu_torch.msm import msm
 from halo2_tpu_torch.msm import sorted as msm_sorted
@@ -67,9 +79,11 @@ from halo2_tpu_torch.utils import build, profiling
 from halo2_tpu_torch.utils.profiling import bound_ms as _bound
 from halo2_tpu_torch.utils.profiling import max_abs_err as _max_err
 from halo2_tpu_torch.utils.profiling import time_cuda as _time_cuda
+from tests.data.torch_golden_circuits import argument_circuit
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_proof.json")
+GOLDEN_ARGS = os.path.join(ROOT, "tests", "data", "torch_golden_args.json")
 DFT_PROBE = os.path.join(ROOT, "examples", "torch_mxu_dft_probe.py")
 
 # 32-bit integer multiply-add-class instructions of one field operation, as
@@ -177,10 +191,18 @@ def phase_env(out):
     print(json.dumps({"env": env}), flush=True)
 
 
-def _shapes(k: int):
-    """The shapes the k-row proof of MulChainCircuit gives each kernel."""
+# the circuit of each driven path, for the shapes its k-row proof gives
+# the kernels (configured only: no witness)
+PATH_CIRCUITS = (("prove", lambda: MulChainCircuit(1)),
+                 ("args", lambda: AllArgsCircuit()))
+
+
+def _shapes(k: int, path: str, circuit):
+    """The shapes the k-row proof of `circuit` gives each kernel."""
     cs = ConstraintSystem()
-    MulChainCircuit(1).configure(cs)
+    circuit.configure(cs)
+    cs.chunk_lookups()
+    cs.chunk_shuffles()
     cs_degree = cs.degree()
     dom_k = k
     qd = max(cs_degree - 1, 1)
@@ -191,25 +213,43 @@ def _shapes(k: int):
     block = min(SORT_BLOCK, n)
     c = window_bits_for(block)
     windows = msm_sorted.num_windows_for(254, c)
+    sets = [lk.input_expressions_sets for lk in cs.lookups]
     # the widest commitment batch (one msm_many, one Horner lane a column):
     # keygen's fixed columns (selectors included) or permutation columns,
-    # the advice, the instance, or the quotient's pieces; the permutation's
-    # grand products are at most one a permutation column
+    # the advice, the instance, the quotient's pieces, the m columns, the
+    # lookup zs (one a set) or the shuffle zs; the permutation's grand
+    # products are at most one a permutation column
     lanes = max(cs.num_fixed_columns + cs.num_selectors,
                 len(cs.permutation.columns), cs.num_advice_columns,
-                cs.num_instance_columns, qd)
-    return {"n": n, "ext_n": ext_n, "ext_k": ext_k,
+                cs.num_instance_columns, qd, len(sets),
+                sum(len(s) for s in sets), len(cs.shuffles))
+    # prefix_mul's lengths (batch_inverse): a column of n, and the logup
+    # grand sums' inverses, C inputs and the table of a lookup's first set,
+    # C inputs of each further set
+    scan = {n}
+    for lk_sets in sets:
+        scan.add((len(lk_sets[0]) + 1) * n)
+        scan.update(len(s) * n for s in lk_sets[1:])
+    return {"path": path, "n": n, "ext_n": ext_n, "ext_k": ext_k,
             "scan": windows * block, "windows": windows, "c": c,
             "block": block, "nb": (1 << (c - 1)) + 1,
-            "horner_lanes": lanes}
+            "horner_lanes": lanes, "prefix_lengths": sorted(scan)}
 
 
-def _k1_binop(sh, gen, device) -> dict:
+def _other_paths(shs, key) -> list:
+    """The shapes of every path after the first whose `key` differs from
+    the first path's."""
+    return [sh for sh in shs[1:] if sh[key] != shs[0][key]]
+
+
+def _k1_binop(shs, gen, device) -> dict:
+    sh = shs[0]
+    ext_ns = sorted({x["ext_n"] for x in shs}, reverse=True)
     variants = []
     for F in (fr(device), fq(device)):
         for op in ("add", "sub", "mul"):
             worst = 0
-            for n in (sh["ext_n"], 1000, 1):
+            for n in ext_ns + [1000, 1]:
                 a = _rand_field(F, (n,), gen)
                 b = _rand_field(F, (n,), gen).flip(1).contiguous()
                 worst = max(worst, _max_err(
@@ -226,6 +266,20 @@ def _k1_binop(sh, gen, device) -> dict:
                     cuda_ops.binop(op, F, a[:, :2 * h:2], b[:, 1::2]),
                     cuda_ops.plain_binop(op, F, a[:, :2 * h:2].contiguous(),
                                          b[:, 1::2].contiguous())))
+            # a column batch (16, C, N) as each path gives it: against a
+            # batch of the same shape, one element, and a row (16, 1, N)
+            # broadcast over the columns
+            for x in shs:
+                for n in (x["n"], x["ext_n"]):
+                    shape = (x["horner_lanes"], n)
+                    a = _rand_field(F, shape, gen)
+                    b = _rand_field(F, shape, gen)
+                    row = b[:, :1]
+                    for rhs, full in ((b, b), (b[:, 0, 0], b[:, :1, :1]),
+                                      (row, row)):
+                        worst = max(worst, _max_err(
+                            cuda_ops.binop(op, F, a, rhs),
+                            cuda_ops.plain_op(op, F, a, full)))
             n = sh["ext_n"]
             a, b = _rand_field(F, (n,), gen), _rand_field(F, (n,), gen)
             t = _times(lambda: cuda_ops.binop(op, F, a, b),
@@ -237,17 +291,37 @@ def _k1_binop(sh, gen, device) -> dict:
                              **_bounds(3 * N_LIMBS * WORD * n, muls * n,
                                        adds * n)})
     variants.sort(key=lambda v: v["variant"] != "mul/Fr")
+    # mul/Fr at the extended domain of each further path
+    F = fr(device)
+    for x in _other_paths(shs, "ext_n"):
+        n = x["ext_n"]
+        a, b = _rand_field(F, (n,), gen), _rand_field(F, (n,), gen)
+        variants.append({
+            "variant": f"mul/Fr {x['path']}", "n": n,
+            "max_abs_err": _max_err(cuda_ops.binop("mul", F, a, b),
+                                    cuda_ops.plain_binop("mul", F, a, b)),
+            **_times(lambda: cuda_ops.binop("mul", F, a, b), _time_cuda(
+                lambda: cuda_ops.plain_binop("mul", F, a, b), 2)),
+            **_bounds(3 * N_LIMBS * WORD * n, n)})
     return _entry("field_binop", "halo2_tpu_torch/csrc/field_kernels.cu",
                   "halo2_tpu/fields/pallas_ops.py:65", variants,
                   f"mul/Fr (16, {sh['ext_n']})")
 
 
-def _k2_butterfly(sh, gen, device) -> dict:
+def _butterfly_case(sh, cols):
+    """(mid, half, rep) of the widest stage of a path's coset extension:
+    cols columns, the first radix-2 stage of the four-step's rows."""
+    return cols, sh["ext_n"] // 2, 1 << ((sh["ext_k"] + 1) // 2)
+
+
+def _k2_butterfly(shs, gen, device) -> dict:
     F = fr(device)
     worst = 0
-    n1 = 1 << ((sh["ext_k"] + 1) // 2)
-    cols = 3
-    cases = [(cols, sh["ext_n"] // 2, n1), (5, 24, 4), (7, 1, 1), (1, 1000, 8)]
+    head = _butterfly_case(shs[0], 3)
+    others = [(x["path"], _butterfly_case(x, x["horner_lanes"]))
+              for x in _other_paths(shs, "ext_n")]
+    cases = [head] + [c for _, c in others] + [(5, 24, 4), (7, 1, 1),
+                                               (1, 1000, 8)]
     for mid, half, rep in cases:
         x = _rand_field(F, (mid, 2, half), gen)
         tw = _rand_field(F, (half // rep,), gen)
@@ -255,40 +329,52 @@ def _k2_butterfly(sh, gen, device) -> dict:
         worst = max(worst, _max_err(cuda_ops.butterfly(F, lo, hi, tw, rep),
                                     cuda_ops.plain_butterfly(F, lo, hi, tw,
                                                              rep)))
-    mid, half, rep = cases[0]
-    x = _rand_field(F, (mid, 2, half), gen)
-    tw = _rand_field(F, (half // rep,), gen)
-    lo, hi = x[:, :, 0, :], x[:, :, 1, :]
-    n = mid * half
-    t = _times(lambda: cuda_ops.butterfly(F, lo, hi, tw, rep), _time_cuda(
-        lambda: cuda_ops.plain_butterfly(F, lo, hi, tw, rep), 2))
-    v = {"variant": "Fr", "max_abs_err": worst, **t,
-         **_bounds((4 * n + half // rep) * N_LIMBS * WORD, n, 2 * n)}
+    variants = []
+    for name, (mid, half, rep) in [("Fr", head)] + [
+            (f"Fr {path}", c) for path, c in others]:
+        x = _rand_field(F, (mid, 2, half), gen)
+        tw = _rand_field(F, (half // rep,), gen)
+        lo, hi = x[:, :, 0, :], x[:, :, 1, :]
+        n = mid * half
+        t = _times(lambda: cuda_ops.butterfly(F, lo, hi, tw, rep), _time_cuda(
+            lambda: cuda_ops.plain_butterfly(F, lo, hi, tw, rep), 2))
+        variants.append({
+            "variant": name, "shape": f"lo, hi (16, {mid}, {half}), "
+                                      f"tw (16, {half // rep})",
+            "max_abs_err": worst, **t,
+            **_bounds((4 * n + half // rep) * N_LIMBS * WORD, n, 2 * n)})
     return _entry("ntt_butterfly", "halo2_tpu_torch/csrc/field_kernels.cu",
-                  "halo2_tpu/fields/pallas_ops.py:115", [v],
-                  f"lo, hi (16, {mid}, {half}), tw (16, {half // rep})")
+                  "halo2_tpu/fields/pallas_ops.py:115", variants,
+                  variants[0]["shape"])
 
 
-def _k3_mul_tiled(sh, gen, device) -> dict:
+def _k3_mul_tiled(shs, gen, device) -> dict:
     F = fr(device)
     worst = 0
-    cols = 3
-    cases = [(cols, sh["ext_n"]), (sh["ext_n"] // 4, 4), (7, 1000), (1, 1)]
+    head = (3, shs[0]["ext_n"])
+    others = [(x["path"], (x["horner_lanes"], x["ext_n"]))
+              for x in _other_paths(shs, "ext_n")]
+    cases = [head] + [c for _, c in others] + [
+        (x["ext_n"] // 4, 4) for x in shs] + [(7, 1000), (1, 1)]
     for mid, kk in cases:
         a = _rand_field(F, (mid, kk), gen)
         t = _rand_field(F, (kk,), gen)
         worst = max(worst, _max_err(cuda_ops.mul_tiled(F, a, t),
                                     cuda_ops.plain_mul_tiled(F, a, t)))
-    mid, kk = cases[0]
-    a, t = _rand_field(F, (mid, kk), gen), _rand_field(F, (kk,), gen)
-    n = mid * kk
-    tm = _times(lambda: cuda_ops.mul_tiled(F, a, t),
-                _time_cuda(lambda: cuda_ops.plain_mul_tiled(F, a, t), 2))
-    v = {"variant": "Fr", "max_abs_err": worst, **tm,
-         **_bounds((2 * n + kk) * N_LIMBS * WORD, n)}
+    variants = []
+    for name, (mid, kk) in [("Fr", head)] + [(f"Fr {path}", c)
+                                             for path, c in others]:
+        a, t = _rand_field(F, (mid, kk), gen), _rand_field(F, (kk,), gen)
+        n = mid * kk
+        tm = _times(lambda: cuda_ops.mul_tiled(F, a, t),
+                    _time_cuda(lambda: cuda_ops.plain_mul_tiled(F, a, t), 2))
+        variants.append({
+            "variant": name, "shape": f"a (16, {mid}, {kk}), t (16, {kk})",
+            "max_abs_err": worst, **tm,
+            **_bounds((2 * n + kk) * N_LIMBS * WORD, n)})
     return _entry("mul_tiled", "halo2_tpu_torch/csrc/field_kernels.cu",
-                  "halo2_tpu/fields/pallas_ops.py:149", [v],
-                  f"a (16, {mid}, {kk}), t (16, {kk})")
+                  "halo2_tpu/fields/pallas_ops.py:149", variants,
+                  variants[0]["shape"])
 
 
 def _pow_products(e: int) -> int:
@@ -341,11 +427,15 @@ def _scan_products(n: int) -> int:
     return (n - C) + 2 * C + hs + (n - L)
 
 
-def _field_scan(sh, gen, device) -> dict:
+def _field_scan(shs, gen, device) -> dict:
     """prefix_mul: three launches, against the composed blocked scan."""
+    sh = shs[0]
     variants = []
     F = fr(device)
-    for n in (sh["n"], 4 * sh["n"]):
+    lengths = [sh["n"], 4 * sh["n"]]
+    for x in shs:
+        lengths += [m for m in x["prefix_lengths"] if m not in lengths]
+    for n in lengths:
         a = _rand_field(F, (n,), gen)
         for reverse in (False, True):
             want, plain_ms = profiling.timed(
@@ -459,8 +549,9 @@ def _k5_packed(sh, gen, device, pts) -> dict:
     e = _entry("add_mixed_packed", "halo2_tpu_torch/csrc/point_kernels.cu",
                "halo2_tpu/curves/pallas_point.py:73", [v],
                f"carry 3 x (16, {m}), packed (16, {m}), sign ({m},)")
-    e["launches_from"] = ("the prove path launches it 0 times: msm_scan "
-                          "runs every step of a window group in one launch")
+    e["launches_from"] = ("the prove and args paths launch it 0 times: "
+                          "msm_scan runs every step of a window group in "
+                          "one launch")
     return e
 
 
@@ -558,8 +649,9 @@ def _horner_bounds(lanes, W, c, tail) -> dict:
                    lanes * (chain * da + (W - 1) * aa))
 
 
-def _point_horner(sh, gen, device, pts, ptxas) -> dict:
+def _point_horner(shs, gen, device, pts, ptxas) -> dict:
     """The Horner combine: one launch, against the composed loop."""
+    sh = shs[0]
     aff_p, proj_p, aff_q, proj_q, ident = pts
     lanes, W, c = sh["horner_lanes"], sh["windows"], sh["c"]
     pick = lambda m: tuple(x[:, :m] for x in proj_p)  # noqa: E731
@@ -571,10 +663,15 @@ def _point_horner(sh, gen, device, pts, ptxas) -> dict:
     variants = []
     # the proof's widest combine, and the Abel sum's M * E_M doublings
     # (W = 1, c = 0, log2(2^(c-1)) = c - 1 doublings on every window)
-    for name, tot, cb, tail in (
+    # and the widest combine of each further path
+    for name, tot, cb, tail in [
             (f"combine lanes={lanes} W={W} c={c}", totals_of(lanes, W), c, 0),
             (f"abel lanes={sh['windows']} doublings={c - 1}",
-             totals_of(sh["windows"], 1), 0, c - 1)):
+             totals_of(sh["windows"], 1), 0, c - 1)] + [
+            (f"combine lanes={x['horner_lanes']} W={x['windows']} "
+             f"c={x['c']} {x['path']}",
+             totals_of(x["horner_lanes"], x["windows"]), x["c"], 0)
+            for x in _other_paths(shs, "horner_lanes")]:
         want, plain_ms = profiling.timed(
             lambda: g1.plain_horner(tot, cb, tail))
         got = g1.horner(tot, cb, tail)
@@ -661,18 +758,25 @@ def _point_ladder(sh, gen, device, pts) -> dict:
 def phase_kernels(k: int, device, ptxas: dict) -> list:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    sh = _shapes(k)
+    shs = [_shapes(k, path, make()) for path, make in PATH_CIRCUITS]
+    sh = shs[0]
+    for x in shs[1:]:
+        for key in ("n", "windows", "c", "block", "nb", "scan"):
+            if x[key] != sh[key]:
+                raise AssertionError(f"the {x['path']} path's {key} differs "
+                                     f"from the {sh['path']} path's: check "
+                                     f"it at its own shape")
     n = sh["n"]
     aff_p, proj_p = _rand_points(n, gen, device)
     aff_q, proj_q = _rand_points(n, gen, device)
     pts = (aff_p, proj_p, aff_q, proj_q, g1.identity((n,), device))
-    entries = [_k1_binop(sh, gen, device), _k2_butterfly(sh, gen, device),
-               _k3_mul_tiled(sh, gen, device), _field_pow(sh, gen, device),
-               _field_scan(sh, gen, device),
+    entries = [_k1_binop(shs, gen, device), _k2_butterfly(shs, gen, device),
+               _k3_mul_tiled(shs, gen, device), _field_pow(sh, gen, device),
+               _field_scan(shs, gen, device),
                _k4_point_op(sh, gen, device, pts),
                _k5_packed(sh, gen, device, pts),
                _msm_scan(sh, gen, device, pts, ptxas),
-               _point_horner(sh, gen, device, pts, ptxas),
+               _point_horner(shs, gen, device, pts, ptxas),
                _point_ladder(sh, gen, device, pts)]
     for e in entries:
         if e["max_abs_err"] != 0:
@@ -685,6 +789,8 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
 def phase_golden(device):
     with open(GOLDEN) as fh:
         golden = json.load(fh)
+    with open(GOLDEN_ARGS) as fh:
+        golden_args = json.load(fh)
     t0 = time.time()
     params = Params.unsafe_setup(golden["k"], seed=golden["params_seed"],
                                  device=device)
@@ -700,9 +806,25 @@ def phase_golden(device):
                 f"golden proof bytes differ for seed {seed}")
         if not verify_proof(pv, vk, [[out]], proof):
             raise AssertionError(f"golden proof for seed {seed} rejected")
+    args = {}
+    for name, rec in golden_args["proofs"].items():
+        circuit, planner = argument_circuit(name, rec["k"])
+        params = Params.unsafe_setup(rec["k"], seed=rec["params_seed"],
+                                     device=device)
+        vk, pk = keygen(params, circuit, floor_planner=planner, device=device)
+        if vk.pinned() != rec["pinned_vk"]:
+            raise AssertionError(f"golden pinned vk differs for {name}")
+        proof = create_proof(params, pk, circuit, rec["instances"],
+                             seed=rec["prover_seed"], floor_planner=planner,
+                             device=device)
+        if proof.hex() != rec["proof_hex"]:
+            raise AssertionError(f"golden proof bytes differ for {name}")
+        if not verify_proof(params.verifier(1), vk, rec["instances"], proof):
+            raise AssertionError(f"golden proof of {name} rejected")
+        args[name] = {"k": rec["k"], "proof_bytes": len(proof)}
     print(json.dumps({"golden": {
         "k": golden["k"], "seeds": sorted(golden["proofs"]),
-        "bytes_equal": True, "verified": True,
+        "arguments": args, "bytes_equal": True, "verified": True,
         "seconds": round(time.time() - t0, 2)}}), flush=True)
 
 
@@ -721,60 +843,79 @@ FAMILY_LIMITS_K16 = {"K1": 6000, "K4": 1500}
 OFF_PROVE_PATH = ("add_mixed_packed",)
 
 
-def phase_prove(k: int, seed: int, device) -> dict:
-    circuit = MulChainCircuit(MulChainCircuit.steps_for(k), a=3, b=5)
-    out = circuit.expected_out()
+def _rejects(pv, vk, instances, proof) -> bool:
+    try:
+        return not verify_proof(pv, vk, instances, proof)
+    except ValueError:
+        return True
+
+
+def _drive(name, k, seed, device, circuit, instances, floor_planner=None,
+           extra=None, family_limits=None) -> dict:
+    """unsafe_setup -> keygen -> create_proof -> verify_proof, with every
+    launch count set to 0 just before and read just after; a proof with one
+    byte flipped and a wrong instance must be rejected.  Prints the path's
+    JSON line (with `extra` in it) and returns its launches; fails where a
+    family of kernels launched more than `family_limits` gives it."""
     torch.cuda.reset_peak_memory_stats(device)
     profiling.reset()
-    _reset_counts()                          # the main path starts here
+    _reset_counts()                          # the path starts here
     phases = profiling.PhaseTimes(device)
     params = Params.unsafe_setup(k, seed=seed, device=device)
     phases("unsafe_setup")
-    vk, pk = keygen(params, circuit, device=device)
+    vk, pk = keygen(params, circuit, floor_planner=floor_planner,
+                    device=device)
     phases("keygen")
     prover_phases = profiling.PhaseTimes(device)
-    proof = create_proof(params, pk, circuit, [[out]], seed=seed + 1,
-                         device=device, phases=prover_phases)
+    proof = create_proof(params, pk, circuit, instances, seed=seed + 1,
+                         floor_planner=floor_planner, device=device,
+                         phases=prover_phases)
     phases("create_proof")
     launches = {**cuda_ops.launch_counts, **cuda_point.launch_counts}
-    launches = dict(launches)                # the main path ends here
+    launches = dict(launches)                # and ends here
     families = {fam: sum(launches[c] for c in counters)
                 for fam, counters in FAMILIES.items()}
     pv = params.verifier(1)
-    ok = verify_proof(pv, vk, [[out]], proof)
+    ok = verify_proof(pv, vk, instances, proof)
     phases("verify_proof")
     tampered = bytearray(proof)
     tampered[-40] ^= 1
-    try:
-        bad = verify_proof(pv, vk, [[out]], bytes(tampered))
-    except ValueError:
-        bad = False
+    tampered_rejected = _rejects(pv, vk, instances, bytes(tampered))
+    wrong = [[(v + 1) % P for v in col] for col in instances]
+    wrong_rejected = _rejects(pv, vk, wrong, proof)
     if not ok:
-        raise AssertionError("the proof was rejected")
-    if bad:
-        raise AssertionError("a tampered proof was accepted")
-    for name, count in launches.items():
-        if count <= 0 and name not in OFF_PROVE_PATH:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 f"main path")
-    for name in OFF_PROVE_PATH:
-        if launches[name]:
-            raise AssertionError(f"kernel {name} was launched "
-                                 f"{launches[name]} times on the main path")
+        raise AssertionError(f"{name}: the proof was rejected")
+    if not tampered_rejected:
+        raise AssertionError(f"{name}: a tampered proof was accepted")
+    if not wrong_rejected:
+        raise AssertionError(f"{name}: a wrong instance was accepted")
+    for kernel, count in launches.items():
+        if count <= 0 and kernel not in OFF_PROVE_PATH:
+            raise AssertionError(f"{name}: kernel {kernel} was never "
+                                 f"launched on the path")
+    for kernel in OFF_PROVE_PATH:
+        if launches[kernel]:
+            raise AssertionError(f"{name}: kernel {kernel} was launched "
+                                 f"{launches[kernel]} times on the path")
     counters = dict(profiling.counters)
-    for name, per in (("msm_scan", "msm_window_groups"),
-                      ("horner", "horner_calls")):
-        if launches[name] != counters[per]:
-            raise AssertionError(f"{name} made {launches[name]} launches for "
-                                 f"{counters[per]} {per}")
-    n = 1 << k
-    usable = vk.cs.usable_rows(n)
-    print(json.dumps({"prove": {
-        "k": k, "rows": n, "rows_assigned": 2 * circuit.steps,
-        "fill_of_usable": round(2 * circuit.steps / usable, 4),
-        "degree": vk.cs.degree(), "extended_k": vk.domain.extended_k,
+    for kernel, per in (("msm_scan", "msm_window_groups"),
+                        ("horner", "horner_calls")):
+        if launches[kernel] != counters[per]:
+            raise AssertionError(f"{name}: {kernel} made {launches[kernel]} "
+                                 f"launches for {counters[per]} {per}")
+    cs = vk.cs
+    print(json.dumps({name: {
+        "k": k, "rows": 1 << k, "usable_rows": cs.usable_rows(1 << k),
+        **(extra or {}),
+        "degree": cs.degree(), "extended_k": vk.domain.extended_k,
+        "advice_columns": cs.num_advice_columns,
+        "fixed_columns": cs.num_fixed_columns,
+        "lookup_sets": [len(lk.input_expressions_sets) for lk in cs.lookups],
+        "shuffle_units": [len(g.units) for g in cs.shuffles],
+        "range_checks": len(cs.range_check),
         "proof_bytes": len(proof), "verified": ok,
-        "tampered_rejected": not bad,
+        "tampered_rejected": tampered_rejected,
+        "wrong_instance_rejected": wrong_rejected,
         "seconds": {n_: round(s, 3) for n_, s in phases.seconds.items()},
         "create_proof_seconds": {n_: round(s, 3) for n_, s
                                  in prover_phases.seconds.items()},
@@ -782,12 +923,27 @@ def phase_prove(k: int, seed: int, device) -> dict:
         "counters": counters,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}}),
         flush=True)
-    if k == 16:
-        for fam, most in FAMILY_LIMITS_K16.items():
-            if families[fam] > most:
-                raise AssertionError(f"{fam} made {families[fam]} launches "
-                                     f"at k = 16, more than {most}")
+    for fam, most in (family_limits or {}).items():
+        if families[fam] > most:
+            raise AssertionError(f"{name}: {fam} made {families[fam]} "
+                                 f"launches, more than {most}")
     return launches
+
+
+def phase_prove(k: int, seed: int, device) -> dict:
+    """A row-filling chain of mul gates (gates + permutation)."""
+    circuit = MulChainCircuit(MulChainCircuit.steps_for(k), a=3, b=5)
+    return _drive("prove", k, seed, device, circuit,
+                  [[circuit.expected_out()]],
+                  extra={"rows_assigned": 2 * circuit.steps},
+                  family_limits=FAMILY_LIMITS_K16 if k == 16 else None)
+
+
+def phase_args(k: int, seed: int, device) -> dict:
+    """Every argument in one proof: AllArgsCircuit over all usable rows."""
+    circuit = AllArgsCircuit(AllArgsCircuit.usable_rows(k))
+    return _drive("args", k, seed, device, circuit, [[circuit.instance()]],
+                  FlatFloorPlanner)
 
 
 def _load_dft_probe():
@@ -872,7 +1028,7 @@ def phase_dft(device, smi: str):
         "shape": f"lo, hi ({DFT_SIZES[0] * dm.NB}, {DFT_B}) float32 -> "
                  f"(17, {DFT_SIZES[0]}, {DFT_B})",
         "launches_from": "the dft phase (dft_matmul at m = 16 and 64); the "
-                         "prove path launches it 0 times",
+                         "prove and args paths launch it 0 times",
         "variants": [variant(m) for m in DFT_SIZES]}
     return entry, launches
 
@@ -884,7 +1040,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
-ALL_PHASES = "env,kernels,golden,prove,dft"
+ALL_PHASES = "env,kernels,golden,prove,args,dft"
 
 
 def main(argv=None) -> int:
@@ -909,14 +1065,19 @@ def main(argv=None) -> int:
         if "kernels" in phases else []
     if "golden" in phases:
         phase_golden(device)
-    launches = phase_prove(args.k, args.seed, device) \
-        if "prove" in phases else {}
+    paths = {}                               # path -> its launch counts
+    if "prove" in phases:
+        paths["prove"] = phase_prove(args.k, args.seed, device)
+    if "args" in phases:
+        paths["args"] = phase_args(args.k, args.seed, device)
     if "dft" in phases:
-        entry, dft_launches = phase_dft(device, out["smi"])
+        entry, paths["dft"] = phase_dft(device, out["smi"])
         entries.append(entry)
-        launches.update(dft_launches)
     for e in entries:
-        e["launches"] = launches.get(LAUNCH_KEY[e["name"]], 0)
+        by_path = {path: counts.get(LAUNCH_KEY[e["name"]], 0)
+                   for path, counts in paths.items()}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
     print(json.dumps({"kernels": entries}), flush=True)
     print(out["smi"], flush=True)
     if phases != set(ALL_PHASES.split(",")):

@@ -1,9 +1,15 @@
-"""Example circuits of the class this package proves: a custom gate, copy
-constraints, a constant and a public input.  Used by `chip_smoke.py` and
-the tests."""
+"""Example circuits of the class this package proves: custom gates, copy
+constraints, a constant and a public input (`SimpleCircuit`,
+`MulChainCircuit`); logup lookups with two input sets and a shuffle
+(`LookupShuffleCircuit`); a range check by sorted column
+(`RangeCheckCircuit`); and every argument in one proof (`AllArgsCircuit`).
+Used by `chip_smoke.py` and the tests."""
 
 from __future__ import annotations
 
+import numpy as np
+
+from halo2_tpu_torch.circuit import Cell
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.plonk import Circuit
 
@@ -149,3 +155,208 @@ class MulChainCircuit(Circuit):
             out, prev_val = layouter.assign_region(f"step{i}", step)
             prev_cell = out.cell
         layouter.constrain_instance(prev_cell, config.instance, 0)
+
+
+class _LookupShuffleConfig:
+    def __init__(self, a, b, tc):
+        self.a, self.b, self.tc = a, b, tc
+
+
+class LookupShuffleCircuit(Circuit):
+    """Advice a, b: both looked up in one fixed table through ONE shared
+    logup (two input sets: set chunking and z chaining); b must be a
+    shuffle of a; one copy constraint a[0] == b[last]."""
+
+    TABLE = list(range(10))
+    VALS_A = [3, 1, 4, 1, 5, 9, 2, 6]
+    VALS_B = [6, 2, 9, 5, 1, 4, 1, 3]  # a permutation of VALS_A
+
+    def __init__(self, vals_a=None, vals_b=None):
+        self.vals_a = vals_a
+        self.vals_b = vals_b
+
+    def without_witnesses(self):
+        return LookupShuffleCircuit()
+
+    def configure(self, meta):
+        a = meta.advice_column()
+        b = meta.advice_column()
+        tc = meta.table_column()
+        meta.enable_equality(a)
+        meta.enable_equality(b)
+        # both lookups share the table -> merged into one logup argument;
+        # the degree forces the second input into an extra set
+        meta.lookup("a_range", lambda m: [(m.query_advice(a, 0), tc)])
+        meta.lookup("b_range", lambda m: [(m.query_advice(b, 0), tc)])
+        meta.shuffle("ab_shuffle",
+                     lambda m: [(m.query_advice(a, 0), m.query_advice(b, 0))])
+        return _LookupShuffleConfig(a, b, tc)
+
+    def synthesize(self, config, layouter):
+        def table_fn(region):
+            for i, v in enumerate(self.TABLE):
+                region.assign_fixed("t", config.tc.inner, i, v)
+        layouter.assign_table("table", table_fn)
+
+        va = self.vals_a or [None] * len(self.VALS_A)
+        vb = self.vals_b or [None] * len(self.VALS_B)
+
+        def vals_fn(region):
+            cells_a, cells_b = [], []
+            for i in range(len(va)):
+                cells_a.append(region.assign_advice("a", config.a, i, va[i]))
+                cells_b.append(region.assign_advice("b", config.b, i, vb[i]))
+            region.constrain_equal(cells_a[0].cell, cells_b[-1].cell)
+            return cells_a, cells_b
+        layouter.assign_region("vals", vals_fn)
+
+
+class _RangeCheckConfig:
+    def __init__(self, origin, l0, lact, llast):
+        self.origin = origin
+        self.l0, self.lact, self.llast = l0, lact, llast
+
+
+class RangeCheckCircuit(Circuit):
+    """One advice column range-checked to [MIN, MAX] by a sorted column
+    (the prover fills its tail with MIN..MAX and sorts it); the three fixed
+    indicator columns mark the first, the usable and the last usable row of
+    a 2^k-row domain with `usable` usable rows."""
+
+    MIN, MAX, STEP = 0, 7, 1
+    VALUES = [3, 5, 7, 1, 0, 2]
+
+    def __init__(self, values=None, usable: int = 26):
+        self.values = values
+        self.usable = usable
+
+    def without_witnesses(self):
+        return RangeCheckCircuit(usable=self.usable)
+
+    def configure(self, meta):
+        l0 = meta.fixed_column()
+        lact = meta.fixed_column()
+        llast = meta.fixed_column()
+        origin = meta.advice_column_range(l0, lact, llast, self.MIN,
+                                          self.MAX, self.STEP)
+        return _RangeCheckConfig(origin, l0, lact, llast)
+
+    def synthesize(self, config, layouter):
+        vals = self.values or [None] * len(self.VALUES)
+
+        def fn(region):
+            region.assign_fixed("l0", config.l0, 0, 1)
+            for r in range(self.usable):
+                region.assign_fixed("lact", config.lact, r, 1)
+            region.assign_fixed("llast", config.llast, self.usable - 1, 1)
+            for i, v in enumerate(vals):
+                region.assign_advice("v", config.origin, i, v)
+        layouter.assign_region("rc", fn)
+
+
+class _AllArgsConfig:
+    def __init__(self, a, b, sh, rc_origin, tc, s_sq, l0, lact, llast, inst):
+        self.a, self.b, self.sh = a, b, sh
+        self.rc_origin, self.tc = rc_origin, tc
+        self.s_sq = s_sq
+        self.l0, self.lact, self.llast = l0, lact, llast
+        self.inst = inst
+
+
+class AllArgsCircuit(Circuit):
+    """Every argument in one proof, over `rows` rows (the usable rows of
+    the domain; prove it with FlatFloorPlanner, whose offsets are absolute:
+    the range check's indicator columns are tied to the global rows 0 and
+    rows - 1).
+
+    a[i] in [0, 16); gate s * (a * a - b); a and b both logup-checked
+    against the 0..255 table (a shared table: one argument, two chunked
+    input sets); sh is a reversal-shuffle of a; rc_origin range-checked to
+    [0, 255] by the sorted-column argument; a[0] == a[1] by a copy, and
+    a[0] is the instance.  The witness comes from
+    numpy.random.RandomState(seed)."""
+
+    TABLE_BITS = 8
+    RC_MAX = 255
+
+    def __init__(self, rows=None, seed=5):
+        self.rows = rows
+        self.seed = seed
+
+    def without_witnesses(self):
+        return AllArgsCircuit(self.rows, self.seed)
+
+    @staticmethod
+    def usable_rows(k: int) -> int:
+        """The usable rows of a 2^k-row domain for this circuit."""
+        from halo2_tpu_torch.plonk.circuit import ConstraintSystem
+        cs = ConstraintSystem()
+        AllArgsCircuit(1).configure(cs)
+        cs.chunk_lookups()
+        cs.chunk_shuffles()
+        return cs.usable_rows(1 << k)
+
+    def instance(self) -> int:
+        """a[0], the public input: the first draw of the witness's stream."""
+        return int(np.random.RandomState(self.seed).randint(0, 16, size=1)[0])
+
+    def configure(self, meta):
+        a = meta.advice_column()
+        b = meta.advice_column()
+        sh = meta.advice_column()
+        inst = meta.instance_column()
+        for c in (a, inst):
+            meta.enable_equality(c)
+        tc = meta.table_column()
+        l0 = meta.fixed_column()
+        lact = meta.fixed_column()
+        llast = meta.fixed_column()
+        s_sq = meta.selector()
+
+        def sq_gate(m):
+            return [("sq", m.query_selector(s_sq)
+                     * (m.query_advice(a, 0) * m.query_advice(a, 0)
+                        - m.query_advice(b, 0)))]
+
+        meta.create_gate("square", sq_gate)
+        meta.lookup("a_range", lambda m: [(m.query_advice(a, 0), tc)])
+        meta.lookup("b_range", lambda m: [(m.query_advice(b, 0), tc)])
+        meta.shuffle("a_rev", lambda m: [
+            (m.query_advice(a, 0), m.query_advice(sh, 0))])
+        rc_origin = meta.advice_column_range(l0, lact, llast, 0, self.RC_MAX,
+                                             1)
+        return _AllArgsConfig(a, b, sh, rc_origin, tc, s_sq, l0, lact, llast,
+                              inst)
+
+    def synthesize(self, config, layouter):
+        rows = self.rows
+        rs = np.random.RandomState(self.seed)
+        a_vals = rs.randint(0, 16, size=rows).astype(np.int64)
+        a_vals[1] = a_vals[0]  # a real copy constraint below
+        b_vals = a_vals * a_vals
+        sh_vals = a_vals[::-1].copy()
+        # the prover fills the tail of the origin column with the full
+        # [0, RC_MAX] step sequence: leave room for it
+        rc_count = max(min(rows // 2, rows - (self.RC_MAX + 1) - 8), 1)
+        rc_vals = rs.randint(0, self.RC_MAX + 1, size=rc_count).astype(
+            np.int64)
+
+        def table_fn(region):
+            for i in range(1 << self.TABLE_BITS):
+                region.assign_fixed("t", config.tc.inner, i, i)
+        layouter.assign_table("table", table_fn)
+
+        def fn(region):
+            region.assign_fixed("l0", config.l0, 0, 1)
+            for r in range(rows):
+                region.assign_fixed("lact", config.lact, r, 1)
+            region.assign_fixed("llast", config.llast, rows - 1, 1)
+            for i in range(rows):
+                region.enable_selector("s", config.s_sq, i)
+            region.assign_advice_bulk("a", config.a, 0, a_vals)
+            region.assign_advice_bulk("b", config.b, 0, b_vals)
+            region.assign_advice_bulk("sh", config.sh, 0, sh_vals)
+            region.assign_advice_bulk("rc", config.rc_origin, 0, rc_vals)
+            region.constrain_equal(Cell(config.a, 0), Cell(config.a, 1))
+        layouter.assign_region("body", fn)
+        layouter.constrain_instance(Cell(config.a, 0), config.inst, 0)

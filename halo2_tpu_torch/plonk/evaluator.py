@@ -11,9 +11,10 @@ Re-design of the reference's dominant phase
     extended domain.
 
 The y-fold order matches the verifier exactly: gates, then permutation
-terms (evaluation.rs:1004-1086) — verifier.rs:300-384.  Lookup, shuffle
-and range-check terms are not ported yet: a constraint system that has any
-is refused.
+terms (evaluation.rs:1004-1086), then lookups (evaluation.rs:1088-1184),
+then shuffles (evaluation.rs:1186-1222) — verifier.rs:300-384.  A range
+check is a gate and a shuffle of the constraint system, so it needs no
+terms of its own.
 """
 
 from __future__ import annotations
@@ -24,29 +25,21 @@ from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.fields.limbs import N_LIMBS, to_tensor
 from halo2_tpu_torch.ntt.ntt import powers_table_np
 from halo2_tpu_torch.plonk import permutation as perm_mod
-from halo2_tpu_torch.plonk.expr_eval import ExprCtx, eval_expr
+from halo2_tpu_torch.plonk.expr_eval import ExprCtx, compress_exprs, eval_expr
 
 P = FR_MODULUS
 
 
-def refuse_unported_arguments(cs):
-    """Raise for a constraint system with an argument this package does not
-    prove yet, naming it."""
-    for name, present in (("lookup", cs.lookups), ("shuffle", cs.shuffles),
-                          ("range check", cs.range_check)):
-        if present:
-            raise NotImplementedError(
-                f"the {name} argument is not ported to halo2_tpu_torch yet")
+def h_fold_body(cs, ctx, F, *, perm_z, lookup_m, lookup_z, shuffle_z, l0,
+                l_last, l_active, coset_x, sigmas, one, roll_next, roll_last,
+                theta, beta, gamma, y, value):
+    """The constraint y-fold: gates, the permutation, the logup lookups,
+    the shuffles.
 
-
-def h_fold_body(cs, ctx, F, *, perm_z, l0, l_last, l_active, coset_x, sigmas,
-                one, roll_next, roll_last, beta, gamma, y, value):
-    """The constraint y-fold: gates, then the permutation argument.
-
-    All column arrays are (16, C, L); `roll_next`/`roll_last` implement the
-    two rotation offsets; expression rotations go through ctx.  Order
+    All column arrays are (16, C, L); `lookup_z` holds the z of every set
+    of every lookup, lookup by lookup; `roll_next`/`roll_last` implement
+    the two rotation offsets; expression rotations go through ctx.  Order
     matches verifier.rs."""
-    refuse_unported_arguments(cs)
 
     def ymul(v, t):
         return F.add(F.mul(v, y), t)
@@ -90,6 +83,69 @@ def h_fold_body(cs, ctx, F, *, perm_z, l0, l_last, l_active, coset_x, sigmas,
                                            gamma))
             value = ymul(value, F.mul(F.sub(left, right), l_active))
 
+    # ---- logup lookups (evaluation.rs:1088-1184) -------------------
+    def phi_products(input_set):
+        """(prod_i phi_i, sum_i prod_{j != i} phi_j) of one input set."""
+        phis = [F.add(compress_exprs(inputs, ctx, theta), beta)
+                for inputs in input_set]
+        prod = phis[0]
+        for p_ in phis[1:]:
+            prod = F.mul(prod, p_)
+        psum = None
+        for i in range(len(phis)):
+            term = None
+            for j, p_ in enumerate(phis):
+                if j != i:
+                    term = p_ if term is None else F.mul(term, p_)
+            if term is None:
+                term = one
+            psum = term if psum is None else F.add(psum, term)
+        return prod, psum
+
+    z_off = 0
+    for li, lookup in enumerate(cs.lookups):
+        sets = lookup.input_expressions_sets
+        zs = [lookup_z[:, z_off + i, :] for i in range(len(sets))]
+        z_off += len(sets)
+        tau = F.add(compress_exprs(lookup.table_expressions, ctx, theta), beta)
+        # l_0 * z_first ; l_last * z_last
+        value = ymul(value, F.mul(zs[0], l0))
+        value = ymul(value, F.mul(zs[-1], l_last))
+        # base set: ((z(gX)-z(X)) * tau + m) * prod(phi) - tau * sum_prods
+        prod0, psum0 = phi_products(sets[0])
+        dz = F.sub(roll_next(zs[0]), zs[0])
+        term = F.sub(F.mul(F.add(F.mul(dz, tau), lookup_m[:, li, :]), prod0),
+                     F.mul(tau, psum0))
+        value = ymul(value, F.mul(term, l_active))
+        # chaining
+        for i in range(1, len(sets)):
+            value = ymul(value, F.mul(F.sub(zs[i], roll_last(zs[i - 1])), l0))
+        # extra sets
+        for i in range(1, len(sets)):
+            prod_i, psum_i = phi_products(sets[i])
+            dz = F.sub(roll_next(zs[i]), zs[i])
+            value = ymul(value, F.mul(F.sub(F.mul(dz, prod_i), psum_i),
+                                      l_active))
+
+    # ---- shuffles (evaluation.rs:1186-1222) ------------------------
+    for gi, group in enumerate(cs.shuffles):
+        z = shuffle_z[:, gi, :]
+        # challenges beta^(i+1) per unit
+        input_prod, shuf_prod = None, None
+        chal = beta
+        for unit in group.units:
+            a_c = F.add(compress_exprs(unit.input_expressions, ctx, theta),
+                        chal)
+            s_c = F.add(compress_exprs(unit.shuffle_expressions, ctx, theta),
+                        chal)
+            input_prod = a_c if input_prod is None else F.mul(input_prod, a_c)
+            shuf_prod = s_c if shuf_prod is None else F.mul(shuf_prod, s_c)
+            chal = F.mul(chal, beta)
+        value = ymul(value, F.mul(F.sub(one, z), l0))
+        value = ymul(value, F.mul(F.sub(F.mul(z, z), z), l_last))
+        term = F.sub(F.mul(roll_next(z), shuf_prod), F.mul(z, input_prod))
+        value = ymul(value, F.mul(term, l_active))
+
     return value
 
 
@@ -125,14 +181,17 @@ class Evaluator:
         self._coset_inner = to_tensor(inner, domain.device)
 
     def evaluate_h(self, advice_coeff, instance_coeff, perm_zs_coeff,
-                   beta: int, gamma: int, y: int, value_init=None):
-        """Returns h numerator on the extended coset (16, ext_n)."""
+                   lookup_ms_coeff, lookup_zs_coeff, shuffle_zs_coeff,
+                   theta: int, beta: int, gamma: int, y: int,
+                   value_init=None):
+        """Returns h numerator on the extended coset (16, ext_n).  The z
+        and m arguments are (16, C, n) coefficient stacks; lookup_zs_coeff
+        holds every set of every lookup, lookup by lookup."""
         pk = self.pk
         cs = pk.vk.cs
         domain = pk.vk.domain
         F = domain.F
         ext_n = domain.extended_n
-        refuse_unported_arguments(cs)
 
         def extend_batch(coeffs):
             # (16, C, n) -> (16, C, ext_n)
@@ -163,6 +222,9 @@ class Evaluator:
         return h_fold_body(
             cs, ctx, F,
             perm_z=extend_batch(perm_zs_coeff),
+            lookup_m=extend_batch(lookup_ms_coeff),
+            lookup_z=extend_batch(lookup_zs_coeff),
+            shuffle_z=extend_batch(shuffle_zs_coeff),
             l0=l0, l_last=l_last, l_active=l_active,
             coset_x=coset_x,
             sigmas=lambda j: sigmas_ext[:, j, :],
@@ -170,5 +232,6 @@ class Evaluator:
             roll_next=lambda a: torch.roll(a, -self.rot_scale, dims=-1),
             roll_last=lambda a: torch.roll(a, (bf + 1) * self.rot_scale,
                                            dims=-1),
-            beta=F.encode_scalar(beta), gamma=F.encode_scalar(gamma),
+            theta=F.encode_scalar(theta), beta=F.encode_scalar(beta),
+            gamma=F.encode_scalar(gamma),
             y=F.encode_scalar(y), value=value_init)

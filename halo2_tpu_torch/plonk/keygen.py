@@ -28,8 +28,7 @@ from halo2_tpu_torch.fields.bn254 import FQ_MODULUS, FR_MODULUS
 from halo2_tpu_torch.plonk import permutation as perm_mod
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.error import NotEnoughRowsAvailable
-from halo2_tpu_torch.plonk.evaluator import (Evaluator,
-                                             refuse_unported_arguments)
+from halo2_tpu_torch.plonk.evaluator import Evaluator
 from halo2_tpu_torch.poly.arith import PointPowers
 from halo2_tpu_torch.poly.domain import EvaluationDomain
 from halo2_tpu_torch.utils.device import require_device
@@ -221,7 +220,6 @@ def keygen(params, circuit, floor_planner=None, device="cuda"):
     # plonk/circuit.rs:1316-1324)
     cs.chunk_lookups()
     cs.chunk_shuffles()
-    refuse_unported_arguments(cs)
     degree = cs.degree()
     k = params.k
     n = params.n

@@ -7,23 +7,24 @@ same transcript order, device-first data flow:
   2. witness synthesis into host column buffers -> device lagrange arrays;
      u16-random blinding rows; bounded-bit advice commitments
      (prover.rs:256-315)
-  3. theta (squeezed for the transcript order; lookups are not ported yet)
-  4. beta, gamma
-  5. permutation z commits (grand products on device)
+  3. theta; lookups: compress, m(X) (counts + u16 tail), m commitments
+  4. shuffles: compress; beta, gamma
+  5. permutation z commits (grand products on device), then the lookup
+     grand sums (one z a set, chained), then the shuffle grand products
   6. vanishing random poly commit -> y
-  7. advice iNTT to coeff
+  7. iNTT to coeff of advice, instance, m and every z
   8. evaluate_h (the Evaluator)
   9. vanishing.construct: divide by t, extended_to_coeff, split, commit -> x
  10. all query evals written in order (instance, advice, fixed, vanishing
-     random, permutation common, permutation sets)
+     random, permutation common, permutation sets, lookups, shuffles)
  11. GWC multiopen
 
 Randomness is injectable (`seed`) so proofs are reproducible in tests —
 the reference uses OsRng (prover.rs:286); byte-level determinism here is a
 feature for differential testing.
 
-One circuit instance per proof, gates + permutation, GWC: circuits with a
-lookup, a shuffle or a range check are refused by name.
+One circuit instance per proof, opened with GWC (SHPLONK is refused by
+name): gates, permutation, logup lookups, shuffles and range checks.
 """
 
 from __future__ import annotations
@@ -37,12 +38,14 @@ from halo2_tpu_torch.circuit import Assignment, Cell, SimpleFloorPlanner
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.multiopen import ProverQuery
 from halo2_tpu_torch.multiopen import gwc
+from halo2_tpu_torch.plonk import logup_prover, shuffle_prover
 from halo2_tpu_torch.plonk import permutation as perm_mod
 from halo2_tpu_torch.plonk.error import (InstanceTooLarge,
                                          InvalidInstancesError,
                                          NotEnoughRowsAvailable,
                                          SynthesisError)
-from halo2_tpu_torch.plonk.evaluator import refuse_unported_arguments
+from halo2_tpu_torch.plonk.expr_eval import ExprCtx
+from halo2_tpu_torch.plonk.range_check import fill_and_sort
 from halo2_tpu_torch.plonk.vanishing import VanishingProver
 from halo2_tpu_torch.poly.arith import eval_poly_batch
 from halo2_tpu_torch.transcript import Blake2bWrite
@@ -179,6 +182,18 @@ class WitnessCollection(Assignment):
         resolve_deferred(self.deferred, write)
         self.deferred = []
 
+    def fill_range_checks(self):
+        """Range-check fill + counting sort (prover.rs:1699-1779): each
+        relation's origin column gets its [min..max] tail and its sort
+        column the sorted values; both commit bounds rise to the relation's
+        max, which the filled cells reach."""
+        for rel in self.cs.range_check:
+            fill_and_sort(self.advice, rel, self.usable_rows,
+                          self.max_assigned[rel.origin.index])
+            for c in (rel.origin, rel.sort):
+                self.max_value[c.index] = max(self.max_value[c.index],
+                                              rel.max)
+
     def is_in_prove_mode(self):
         return True
 
@@ -190,6 +205,15 @@ def _quantize_max_bits(bits: int) -> int:
     from halo2_tpu_torch.msm.sorted import SIGNED_C_BITS, num_windows_for
     w = num_windows_for(bits)
     return min(SIGNED_C_BITS * w - 2, 254)
+
+
+def m_commit_bits(m_bits: int) -> int:
+    """The commit bound of a lookup's m(X): its rows below the usable ones
+    hold counts of `m_bits` bits, the rows above u16 random blinding
+    values, so the bound covers 16 bits at least (the reference's bound of
+    the counts alone drops the blinding values' high bits in a bounded-
+    window MSM)."""
+    return _quantize_max_bits(max(m_bits, 16))
 
 
 def create_proof(params, pk, circuit, instances, seed: int | None = None,
@@ -208,7 +232,6 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
             "the SHPLONK multiopen is not ported to halo2_tpu_torch yet")
     vk = pk.vk
     cs = vk.cs
-    refuse_unported_arguments(cs)
     domain = vk.domain
     F = domain.F
     n = params.n
@@ -245,6 +268,7 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     # batch_invert_assigned: ONE inversion for every deferred rational cell
     # (poly.rs:148-173)
     witness.resolve_deferred()
+    witness.fill_range_checks()
     # u16 blinding rows (prover.rs:283-290); named advice exempt
     for ci, col in enumerate(witness.advice):
         if ci in cs.named_advices:
@@ -280,12 +304,33 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
         transcript.write_point(pt)
 
     _pm("advice synth+commit")
-    # 3. theta keeps its place in the transcript; 4. beta, gamma
-    transcript.squeeze_challenge()
+    # 3. theta; lookup compression + m(X) commitments
+    theta = transcript.squeeze_challenge()
+    theta_l = F.encode_scalar(theta)
+    lag_ctx = ExprCtx(advice_lagrange, pk.fixed_lagrange, instance_lagrange,
+                      rot_scale=1, length=n)
+    lookup_data = []
+    m_bits = []
+    for lookup in cs.lookups:
+        table, input_sets = logup_prover.compress(lookup, lag_ctx, theta_l)
+        m_lag, bits = logup_prover.multiplicities(
+            table, [c for s in input_sets for c in s], usable_rows, rng)
+        lookup_data.append((table, input_sets, m_lag))
+        m_bits.append(bits)
+    for pt in params.commit_many_affine(
+            [m for _, _, m in lookup_data], [m_commit_bits(b) for b in m_bits],
+            base="lagrange"):
+        transcript.write_point(pt)
+
+    _pm("lookup compress+m")
+    # 4. shuffle compression; beta, gamma
+    shuffle_data = [shuffle_prover.compress(group, lag_ctx, theta_l)
+                    for group in cs.shuffles]
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
-    # 5. permutation z commits
+    _pm("shuffle compress")
+    # 5. permutation z commits, then lookup zs, then shuffle zs
     def value_col(column):
         if column.ctype == "advice":
             return advice_lagrange[:, column.index, :]
@@ -297,29 +342,52 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
         params, domain, cs, pk.permutation_pk, value_col, beta, gamma, rng)
     for com in z_commitments:
         transcript.write_point(com)
+    lookup_zs = [logup_prover.commit_zs(domain, cs, table, input_sets, m_lag,
+                                        beta, rng)
+                 for table, input_sets, m_lag in lookup_data]
+    shuffle_zs = [shuffle_prover.commit_product(domain, cs, inputs, shuffles,
+                                                beta, rng)
+                  for inputs, shuffles in shuffle_data]
+    arg_zs = [z for zset in lookup_zs for z in zset] + shuffle_zs
+    for com in params.commit_many_affine(arg_zs, base="lagrange"):
+        transcript.write_point(com)
+    # the compressed Lagrange forms die here
+    lookup_ms = [m for _, _, m in lookup_data]
+    del lag_ctx, lookup_data, shuffle_data, arg_zs
 
-    _pm("grand products")
+    _pm("grand products/sums")
     # 6. vanishing random poly -> y
     vanishing = VanishingProver(params, domain, rng)
     transcript.write_point(vanishing.random_commitment)
     y = transcript.squeeze_challenge()
 
     _pm("vanishing commit")
-    # 7. coeff forms
+    # 7. coeff forms: every column of one kind in one batched iNTT
+    def to_coeff(cols):
+        return domain.ntt.inverse(torch.stack(cols, dim=1)) if cols \
+            else F.zeros((0, n))
+
     advice_coeff = (domain.ntt.inverse(advice_lagrange)
                     if cs.num_advice_columns else advice_lagrange)
     instance_coeff = (domain.ntt.inverse(instance_lagrange)
                       if cs.num_instance_columns else instance_lagrange)
-    perm_z_coeffs = [domain.ntt.inverse(z) for z in perm_zs]
-    del advice_lagrange, instance_lagrange, perm_zs
+    perm_z_stack = to_coeff(perm_zs)
+    lookup_m_stack = to_coeff(lookup_ms)
+    lookup_z_stack = to_coeff([z for zset in lookup_zs for z in zset])
+    shuffle_z_stack = to_coeff(shuffle_zs)
+    flat_lz = iter(lookup_z_stack.unbind(1))
+    lookup_z_coeffs = [[next(flat_lz) for _ in zset] for zset in lookup_zs]
+    del advice_lagrange, instance_lagrange, perm_zs, lookup_ms, lookup_zs
+    del shuffle_zs
+    perm_z_coeffs = list(perm_z_stack.unbind(1))
+    lookup_m_coeffs = list(lookup_m_stack.unbind(1))
+    shuffle_z_coeffs = list(shuffle_z_stack.unbind(1))
 
     _pm("iNTTs")
     # 8. h evaluation
     h_ext = pk.ev.evaluate_h(
-        advice_coeff, instance_coeff,
-        torch.stack(perm_z_coeffs, dim=1) if perm_z_coeffs
-        else F.zeros((0, n)),
-        beta, gamma, y)
+        advice_coeff, instance_coeff, perm_z_stack, lookup_m_stack,
+        lookup_z_stack, shuffle_z_stack, theta, beta, gamma, y)
 
     _pm("evaluate_h")
     # 9. vanishing construct -> x
@@ -335,6 +403,15 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     # all polys sharing an evaluation point go through ONE device dot
     x_next = domain.rotate_omega(x, 1)
     x_last = domain.rotate_omega(x, -(bf + 1))
+
+    def z_chain_plan(zcs):
+        out = []
+        for i, zc in enumerate(zcs):
+            out += [(zc, x), (zc, x_next)]
+            if i + 1 < len(zcs):
+                out.append((zc, x_last))
+        return out
+
     plan = []  # (poly, point) in exact transcript write order
     for column, rot in cs.instance_queries:
         plan.append((instance_coeff[:, column.index, :],
@@ -349,11 +426,12 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     plan.append((vanishing.random_poly, x))
     for i in range(m):
         plan.append((pk.permutation_pk.sigmas_coeff[:, i, :], x))
-    for i, zc in enumerate(perm_z_coeffs):
-        plan.append((zc, x))
-        plan.append((zc, x_next))
-        if i + 1 < len(perm_z_coeffs):
-            plan.append((zc, x_last))
+    plan += z_chain_plan(perm_z_coeffs)
+    for m_coeff, zcs in zip(lookup_m_coeffs, lookup_z_coeffs):
+        plan.append((m_coeff, x))
+        plan += z_chain_plan(zcs)
+    for zc in shuffle_z_coeffs:
+        plan += [(zc, x), (zc, x_next)]
     by_point = {}
     for i, (_, pt) in enumerate(plan):
         by_point.setdefault(pt, []).append(i)
@@ -368,6 +446,14 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     _pm("evals")
     # 11. multiopen queries (prover.rs:792-846: the proof's own sections,
     # then fixed / permutation-common / vanishing)
+    def z_chain_queries(zcs):
+        out = []
+        for zc in zcs:
+            out += [ProverQuery(x, 0, zc), ProverQuery(x_next, 1, zc)]
+        for zc in reversed(zcs[:-1]):
+            out.append(ProverQuery(x_last, -(bf + 1), zc))
+        return out
+
     queries = []
     for column, rot in cs.instance_queries:
         queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
@@ -375,11 +461,12 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     for column, rot in cs.advice_queries:
         queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
                                    advice_coeff[:, column.index, :]))
-    for zc in perm_z_coeffs:
-        queries.append(ProverQuery(x, 0, zc))
-        queries.append(ProverQuery(x_next, 1, zc))
-    for zc in reversed(perm_z_coeffs[:-1]):
-        queries.append(ProverQuery(x_last, -(bf + 1), zc))
+    queries += z_chain_queries(perm_z_coeffs)
+    for m_coeff, zcs in zip(lookup_m_coeffs, lookup_z_coeffs):
+        queries.append(ProverQuery(x, 0, m_coeff))
+        queries += z_chain_queries(zcs)
+    for zc in shuffle_z_coeffs:
+        queries += [ProverQuery(x, 0, zc), ProverQuery(x_next, 1, zc)]
     for column, rot in cs.fixed_queries:
         queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
                                    pk.fixed_coeff[:, column.index, :]))

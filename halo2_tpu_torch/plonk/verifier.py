@@ -15,7 +15,6 @@ from halo2_tpu_torch.multiopen import HostMSM, VerifierQuery, decider_verify
 from halo2_tpu_torch.multiopen import gwc
 from halo2_tpu_torch.plonk import permutation as perm_mod
 from halo2_tpu_torch.plonk.circuit import eval_expression_host
-from halo2_tpu_torch.plonk.evaluator import refuse_unported_arguments
 from halo2_tpu_torch.transcript import Blake2bRead
 
 P = FR_MODULUS
@@ -29,7 +28,6 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
         raise NotImplementedError(
             "the SHPLONK multiopen is not ported to halo2_tpu_torch yet")
     cs = vk.cs
-    refuse_unported_arguments(cs)
     domain = vk.domain
     n = params_verifier.n
     bf = cs.blinding_factors()
@@ -50,11 +48,16 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
 
     advice_commitments = [transcript.read_point()
                           for _ in range(cs.num_advice_columns)]
-    transcript.squeeze_challenge()          # theta
+    theta = transcript.squeeze_challenge()
+    lookup_m_commitments = [transcript.read_point() for _ in cs.lookups]
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
     perm_z_commitments = perm_mod.read_product_commitments(cs, transcript)
+    lookup_z_commitments = [
+        [transcript.read_point() for _ in lookup.input_expressions_sets]
+        for lookup in cs.lookups]
+    shuffle_z_commitments = [transcript.read_point() for _ in cs.shuffles]
     random_commitment = transcript.read_point()
     y = transcript.squeeze_challenge()
     h_commitments = [transcript.read_point()
@@ -69,6 +72,19 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
                          for _ in cs.permutation.columns]
     perm_sets = perm_mod.read_set_evals(cs, len(perm_z_commitments),
                                         transcript)
+    lookup_evals = []      # per lookup: (m_eval, [(z_x, z_wx, z_last)])
+    for lookup in cs.lookups:
+        m_eval = transcript.read_scalar()
+        zsets = []
+        ns = len(lookup.input_expressions_sets)
+        for i in range(ns):
+            z_x = transcript.read_scalar()
+            z_wx = transcript.read_scalar()
+            z_last = transcript.read_scalar() if i + 1 < ns else None
+            zsets.append((z_x, z_wx, z_last))
+        lookup_evals.append((m_eval, zsets))
+    shuffle_evals = [(transcript.read_scalar(), transcript.read_scalar())
+                     for _ in cs.shuffles]
 
     # ---- expected h(x) ----------------------------------------------------
     xn = pow(x, n, P)
@@ -76,6 +92,7 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
     l_last = l_evals[0]
     l_blind = sum(l_evals[1: 1 + bf]) % P
     l_0 = l_evals[1 + bf]
+    active_rows = (1 - (l_last + l_blind)) % P
 
     def host_eval(e):
         return eval_expression_host(
@@ -97,6 +114,55 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
     expressions.extend(perm_mod.verifier_expressions(
         cs, perm_sets, perm_common_evals, query_eval,
         l_0, l_last, l_blind, beta, gamma, x))
+
+    def compress_evals(exprs):
+        acc = 0
+        for e in exprs:
+            acc = (acc * theta + host_eval(e)) % P
+        return acc
+
+    def phi_terms(input_set):
+        """(prod_i phi_i, sum_i 1/phi_i) of one input set at x."""
+        phi = [(compress_evals(inputs) + beta) % P for inputs in input_set]
+        product = 1
+        for p_ in phi:
+            product = product * p_ % P
+        return product, sum(pow(p_, P - 2, P) for p_ in phi) % P
+
+    # logup expressions (logup/verifier.rs:101-220)
+    for lookup, (m_eval, zsets) in zip(cs.lookups, lookup_evals):
+        sets = lookup.input_expressions_sets
+        expressions.append(l_0 * zsets[0][0] % P)
+        expressions.append(l_last * zsets[-1][0] % P)
+        product_fi, sum_inv = phi_terms(sets[0])
+        tau = (compress_evals(lookup.table_expressions) + beta) % P
+        z_gx_minus_zx = (zsets[0][1] - zsets[0][0]) % P
+        left = (tau * z_gx_minus_zx + m_eval) % P * product_fi % P
+        right = tau * product_fi % P * sum_inv % P
+        expressions.append((left - right) % P * active_rows % P)
+        for i in range(1, len(sets)):
+            expressions.append(
+                l_0 * ((zsets[i][0] - zsets[i - 1][2]) % P) % P)
+        for i in range(1, len(sets)):
+            product_fi, sum_inv = phi_terms(sets[i])
+            left = (zsets[i][1] - zsets[i][0]) % P
+            expressions.append(
+                (left - sum_inv) % P * product_fi % P * active_rows % P)
+
+    # shuffle expressions (shuffle/verifier.rs:60-127)
+    for group, (z_x, z_wx) in zip(cs.shuffles, shuffle_evals):
+        prod_shuffle, prod_input = 1, 1
+        chal = beta
+        for unit in group.units:
+            prod_shuffle = prod_shuffle * (
+                (compress_evals(unit.shuffle_expressions) + chal) % P) % P
+            prod_input = prod_input * (
+                (compress_evals(unit.input_expressions) + chal) % P) % P
+            chal = chal * beta % P
+        expressions.append(l_0 * ((1 - z_x) % P) % P)
+        expressions.append(l_last * ((z_x * z_x - z_x) % P) % P)
+        expressions.append(
+            (z_wx * prod_shuffle - z_x * prod_input) % P * active_rows % P)
 
     h_eval = 0
     for v in expressions:
@@ -128,6 +194,21 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
         queries.append(VerifierQuery(x_last, -(bf + 1),
                                      perm_z_commitments[i],
                                      perm_sets[i].z_last))
+    for li, (m_eval, zsets) in enumerate(lookup_evals):
+        queries.append(VerifierQuery(x, 0, lookup_m_commitments[li], m_eval))
+        for zi, (z_x, z_wx, _) in enumerate(zsets):
+            queries.append(VerifierQuery(x, 0, lookup_z_commitments[li][zi],
+                                         z_x))
+            queries.append(VerifierQuery(x_next, 1,
+                                         lookup_z_commitments[li][zi], z_wx))
+        for zi in range(len(zsets) - 2, -1, -1):
+            queries.append(VerifierQuery(x_last, -(bf + 1),
+                                         lookup_z_commitments[li][zi],
+                                         zsets[zi][2]))
+    for gi, (z_x, z_wx) in enumerate(shuffle_evals):
+        queries.append(VerifierQuery(x, 0, shuffle_z_commitments[gi], z_x))
+        queries.append(VerifierQuery(x_next, 1, shuffle_z_commitments[gi],
+                                     z_wx))
     for qi, (column, rot) in enumerate(cs.fixed_queries):
         queries.append(VerifierQuery(domain.rotate_omega(x, rot), rot,
                                      vk.fixed_commitments[column.index],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Generate tests/data/torch_golden_proof.json,
-tests/data/torch_golden_horner.json and tests/data/torch_golden_scan.json
-from the JAX package.
+tests/data/torch_golden_horner.json, tests/data/torch_golden_scan.json and
+tests/data/torch_golden_args.json from the JAX package.
 
     JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py
 
@@ -28,14 +28,29 @@ boundary prefixes E and the block totals as projective limbs, which the
 port's scan and `window_totals` must reproduce
 (tests/test_torch_msm_scan.py).  Each batch shape compiles for some 35 s
 on the CPU.
+
+The fourth holds the logup / shuffle / range-check slice (GWC proofs,
+`args_golden`): the pinned vk and the proof bytes of
+tests/test_lookup_shuffle.py's LookupShuffleCircuit (K = 5, params seed 99,
+prover seed 3), tests/test_range_check.py's RangeCheckCircuit (K = 5, seed
+21, prover seed 4) and examples/bench_all_args.py's AllArgsCircuit (K = 9,
+seed 7, prover seed 0, FlatFloorPlanner, instance [[a0]]); the sha256 of
+tests/test_plonk_api.py's pinned vk (keygen only); and module vectors of
+`halo2_tpu.plonk.logup_prover` (`_multiplicities_device` on a table with
+repeated entries, `multiplicities` + `commit_zs` over two input sets) and
+`shuffle_prover.commit_product` over two units, at n = 32, as canonical
+integers (tests/test_torch_args.py, tests/test_torch_args_prover.py).
 """
 
 import functools
+import hashlib
 import importlib
 import io
 import json
 import os
+import random
 import sys
+import types
 
 import numpy as np
 
@@ -216,6 +231,178 @@ def scan_golden() -> dict:
             "max_bits": SCAN_MAX_BITS, "batches": batches}
 
 
+# the argument circuits: name -> (where the circuit lives, K, params seed,
+# prover seed)
+ARGS_CIRCUITS = {
+    "lookup_shuffle": ("tests/test_lookup_shuffle.py::LookupShuffleCircuit",
+                       5, 99, 3),
+    "range_check": ("tests/test_range_check.py::RangeCheckCircuit", 5, 21, 4),
+    "all_args": ("examples/bench_all_args.py::AllArgsCircuit", 9, 7, 0),
+}
+# the module vectors: n rows, bf blinding rows, numpy / random seeds
+ARGS_N, ARGS_BF, ARGS_SEED = 32, 3, 11
+
+
+def args_circuit(name):
+    """(empty circuit, circuit with its witness, instances, floor planner)
+    of one argument circuit, from the JAX package's tests and examples."""
+    if name == "lookup_shuffle":
+        from tests.test_lookup_shuffle import (VALS_A, VALS_B,
+                                               LookupShuffleCircuit)
+        return (LookupShuffleCircuit(), LookupShuffleCircuit(VALS_A, VALS_B),
+                [], None)
+    if name == "range_check":
+        from tests.test_range_check import VALUES, RangeCheckCircuit
+        return RangeCheckCircuit(), RangeCheckCircuit(VALUES), [], None
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from bench_all_args import AllArgsCircuit
+    from halo2_tpu.circuit import FlatFloorPlanner
+    from halo2_tpu.plonk.circuit import ConstraintSystem
+    k = ARGS_CIRCUITS[name][1]
+    cs = ConstraintSystem()
+    AllArgsCircuit(1).configure(cs)
+    cs.chunk_lookups()
+    cs.chunk_shuffles()
+    rows = cs.usable_rows(1 << k)
+    a0 = int(np.random.RandomState(5).randint(0, 16, size=1)[0])
+    return (AllArgsCircuit(rows), AllArgsCircuit(rows), [[a0]],
+            FlatFloorPlanner)
+
+
+def args_proof_record(name, vk, instances, proof: bytes) -> dict:
+    where, k, params_seed, prover_seed = ARGS_CIRCUITS[name]
+    return {"circuit": where, "k": k, "params_seed": params_seed,
+            "prover_seed": prover_seed, "instances": instances,
+            "pinned_vk": vk.pinned(), "proof_hex": proof.hex()}
+
+
+def args_proof(name) -> dict:
+    """The JAX package's key and GWC proof of one argument circuit."""
+    _, k, params_seed, prover_seed = ARGS_CIRCUITS[name]
+    empty, full, instances, planner = args_circuit(name)
+    params = Params.unsafe_setup(k, seed=params_seed)
+    vk, pk = keygen(params, empty, floor_planner=planner)
+    proof = create_proof(params, pk, full, instances, seed=prover_seed,
+                         floor_planner=planner)
+    return args_proof_record(name, vk, instances, proof)
+
+
+def plonk_api_pinned_sha256() -> str:
+    from tests.test_plonk_api import K as PK, LOOKUP_TABLE, MyCircuit
+    params = Params.unsafe_setup(PK, seed=42)
+    vk, _ = keygen(params, MyCircuit(None, LOOKUP_TABLE))
+    return hashlib.sha256(vk.pinned().encode()).hexdigest()
+
+
+def _field_ints(rng, count):
+    """count random field elements, with 0, 1 and p - 1 among them."""
+    from halo2_tpu.fields.bn254 import Fr
+    vals = [int.from_bytes(rng.bytes(32), "little") % Fr.p
+            for _ in range(count)]
+    vals[:3] = [0, 1, Fr.p - 1]
+    return vals
+
+
+def multiplicity_cases() -> list:
+    """Tables with repeated entries (small values, p - 1 twice, a 200-bit
+    value) and inputs drawn from them with repeats; the second case has
+    one input missing from its table."""
+    from halo2_tpu.fields.bn254 import Fr
+    rng = np.random.default_rng(ARGS_SEED)
+    u = ARGS_N - (ARGS_BF + 1)
+    cases = []
+    for missing in (False, True):
+        table = [int(v) for v in rng.integers(0, 12, u)]
+        table[3] = table[10] = Fr.p - 1
+        table[7] = (1 << 200) + 3
+        inputs = [table[int(i)] for i in rng.integers(0, u, 2 * u)]
+        if missing:
+            inputs[5] = 99
+        cases.append({"table": table, "inputs": inputs})
+    return cases
+
+
+def logup_golden() -> dict:
+    """`_multiplicities_device` on `multiplicity_cases()`, and one lookup's
+    m(X) and grand sums over two input sets (two inputs, then one) through
+    `multiplicities` + `commit_zs`, one random.Random drawing both."""
+    import jax.numpy as jnp
+    from halo2_tpu.fields.bn254 import Fr
+    from halo2_tpu.fields.limbs import ints_to_limbs_np
+    from halo2_tpu.plonk import logup_prover as lp
+    cases = multiplicity_cases()
+    for case in cases:
+        m_std, ok, max_count = lp._multiplicities_device(
+            jnp.asarray(ints_to_limbs_np(case["table"])),
+            jnp.asarray(ints_to_limbs_np(case["inputs"])))
+        m_std = np.asarray(m_std)
+        case.update(counts=[int(v) for v in m_std[0] | (m_std[1] << 16)],
+                    ok=bool(ok), max_count=int(max_count))
+    n, bf = ARGS_N, ARGS_BF
+    u = n - (bf + 1)
+    rng_np = np.random.default_rng(ARGS_SEED + 1)
+    table = _field_ints(rng_np, u) + [0] * (bf + 1)
+    sets = [[[table[int(i)] for i in rng_np.integers(0, u, u)]
+             + [int(v) for v in rng_np.integers(0, 1 << 16, bf + 1)]
+             for _ in range(width)] for width in (2, 1)]
+    beta = int.from_bytes(rng_np.bytes(32), "little") % Fr.p
+    rng = random.Random(ARGS_SEED)
+    dev = [[jnp.asarray(Fr.encode(c)) for c in s] for s in sets]
+    m_lag, m_bits = lp.multiplicities(
+        jnp.asarray(Fr.encode(table)), [c for s in dev for c in s], u, rng,
+        bf)
+    zs = lp.commit_zs(types.SimpleNamespace(n=n), _Blinding(bf),
+                      jnp.asarray(Fr.encode(table)), dev, m_lag, beta, rng)
+    return {"multiplicities": cases,
+            "grand_sums": {"n": n, "bf": bf, "rng_seed": ARGS_SEED,
+                           "table": table, "sets": sets, "beta": beta,
+                           "m": Fr.decode(np.asarray(m_lag)),
+                           "m_bits": m_bits,
+                           "zs": [Fr.decode(np.asarray(z)) for z in zs]}}
+
+
+class _Blinding:
+    """The one thing commit_zs / commit_product ask of a constraint
+    system."""
+
+    def __init__(self, bf):
+        self.bf = bf
+
+    def blinding_factors(self):
+        return self.bf
+
+
+def shuffle_golden() -> dict:
+    """`commit_product` of one group of two units: each unit's shuffle
+    column a permutation of its input column on the usable rows."""
+    import jax.numpy as jnp
+    from halo2_tpu.fields.bn254 import Fr
+    from halo2_tpu.plonk import shuffle_prover as sp
+    n, bf = ARGS_N, ARGS_BF
+    u = n - (bf + 1)
+    rng_np = np.random.default_rng(ARGS_SEED + 2)
+    inputs = [_field_ints(rng_np, n) for _ in range(2)]
+    shuffles = []
+    for col in inputs:
+        perm = rng_np.permutation(u)
+        shuffles.append([col[int(i)] for i in perm]
+                        + _field_ints(rng_np, n)[3:3 + n - u])
+    beta = int.from_bytes(rng_np.bytes(32), "little") % Fr.p
+    z = sp.commit_product(types.SimpleNamespace(n=n), _Blinding(bf),
+                          [jnp.asarray(Fr.encode(c)) for c in inputs],
+                          [jnp.asarray(Fr.encode(c)) for c in shuffles],
+                          beta, random.Random(ARGS_SEED))
+    return {"n": n, "bf": bf, "rng_seed": ARGS_SEED, "inputs": inputs,
+            "shuffles": shuffles, "beta": beta,
+            "z": Fr.decode(np.asarray(z))}
+
+
+def args_golden() -> dict:
+    return {"proofs": {name: args_proof(name) for name in ARGS_CIRCUITS},
+            "plonk_api_pinned_vk_sha256": plonk_api_pinned_sha256(),
+            "logup": logup_golden(), "shuffle": shuffle_golden()}
+
+
 def _write(name: str, record: dict):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
     with open(path, "w") as fh:
@@ -224,6 +411,7 @@ def _write(name: str, record: dict):
 
 
 def main():
+    _write("torch_golden_args.json", args_golden())
     _write("torch_golden_scan.json", scan_golden())
     _write("torch_golden_horner.json", horner_golden())
     params = Params.unsafe_setup(K, seed=PARAMS_SEED)

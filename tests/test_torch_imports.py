@@ -48,6 +48,9 @@ def test_package_has_its_modules():
                  "halo2_tpu_torch.ntt.ntt", "halo2_tpu_torch.ntt.dft_matmul",
                  "halo2_tpu_torch.msm.sorted",
                  "halo2_tpu_torch.plonk.prover",
+                 "halo2_tpu_torch.plonk.logup_prover",
+                 "halo2_tpu_torch.plonk.shuffle_prover",
+                 "halo2_tpu_torch.plonk.range_check",
                  "halo2_tpu_torch.plonk.verifier",
                  "halo2_tpu_torch.convert"):
         assert name in MODULES

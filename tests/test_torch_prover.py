@@ -214,8 +214,16 @@ class _LookupCircuit(Circuit):
 
 
 def test_lookup_circuit_is_refused_by_name(port_side):
-    with pytest.raises(NotImplementedError, match="lookup"):
-        keygen(port_side["params"], _LookupCircuit(), device="cpu")
+    """The lookup itself is no longer refused: a circuit with a lookup
+    keygens, with its lookup in the constraint system (its GWC proofs are
+    checked in tests/test_torch_args_prover.py).  What is refused, by name,
+    is the SHPLONK opening of such a circuit's proof."""
+    vk, pk = keygen(port_side["params"], _LookupCircuit(), device="cpu")
+    assert len(vk.cs.lookups) == 1
+    assert "(lookup0," in vk.pinned()
+    with pytest.raises(NotImplementedError, match="SHPLONK"):
+        create_proof(port_side["params"], pk, _LookupCircuit(), [], seed=0,
+                     use_gwc=False, device="cpu")
 
 
 def test_shplonk_is_refused_by_name(port_side):
