@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
 """Smoke run of halo2_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--k K] [--phases env,kernels,golden,prove,args,dft]
+    python3 chip_smoke.py [--k K]
+                          [--phases env,kernels,golden,prove,args,multi,dft]
 
 Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
 
   kernels  holds every kernel against its plain PyTorch version on the card
            (exact equality of the limb words: the tolerance is zero), at the
-           shapes the k-row proof of each driven path (prove, args) gives
-           it and at ragged ones, and times it with CUDA events beside its
-           bound: `ms` around 20 launches from Python, `device_ms` from the
-           same 20 launches replayed from a CUDA graph.  The chain entry
+           shapes the k-row proof of each driven path (prove, args, multi)
+           gives it and at ragged ones, and times it with CUDA events
+           beside its bound: `ms` around 20 launches from Python,
+           `device_ms` from the same 20 launches replayed from a CUDA
+           graph.  The chain entry
            points (pow / inv, the prefix-product scan, the MSM's bucket
            scan, the Horner combine, the scalar ladder) are held to their
            composed plain versions at the proofs' shapes and at edge cases,
            and each public function is shown to make its one launch (three
            for the prefix-product scan);
   golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
-           its seeds, and each circuit of tests/data/torch_golden_args.json
+           its seeds, each circuit of tests/data/torch_golden_args.json
            (a logup lookup over two input sets and a shuffle, K = 5; a range
-           check, K = 5; every argument, K = 9) with its seed, and compares
-           the pinned vks and the proof bytes; the port's verifier must
-           accept each;
+           check, K = 5; every argument, K = 9) with its seed, and every
+           proof of tests/data/torch_golden_multi.json (two-instance GWC and
+           SHPLONK proofs, single SHPLONK proofs, K = 4 and 5, and the proof
+           from the JAX package's witness file), and compares the pinned
+           vks and the proof bytes; the port's verifier must accept each;
   prove    unsafe_setup -> keygen -> create_proof -> verify_proof for a
            row-filling chain of mul gates at 2^k rows, with every kernel's
            launch count set to 0 just before and read just after (all
@@ -34,6 +38,14 @@ Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
            lookup with two input sets, a shuffle of two units, a range
            check), proved with FlatFloorPlanner, with the same checks and
            the peak device memory;
+  multi    two AllArgsCircuit instances (witness seeds 5 and 6) at 2^k rows
+           in one SHPLONK proof (create_proof_multi), with the same counts
+           and checks (the instances swapped must be rejected, and
+           BatchVerifier must accept); then the file round trip: params,
+           circuit data, vk and instance 0's witness written and read back
+           into a fresh Params and ProvingKey, create_proof_from_witness
+           against create_proof on the in-memory key (same seed, SHPLONK),
+           and the reloaded vk verifying the proof;
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
            to 0 just before and read just after, its output against the host
@@ -55,10 +67,12 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
+from halo2_tpu_torch import io as h2io
 from halo2_tpu_torch.circuit import FlatFloorPlanner
 from halo2_tpu_torch.circuits import (AllArgsCircuit, MulChainCircuit,
                                       SimpleCircuit)
@@ -69,21 +83,25 @@ from halo2_tpu_torch.fields.limbs import N_LIMBS, limbs_to_ints
 from halo2_tpu_torch.msm import msm
 from halo2_tpu_torch.msm import sorted as msm_sorted
 from halo2_tpu_torch.msm.msm import SORT_BLOCK, window_bits_for
+from halo2_tpu_torch.multiopen import BatchVerifier
 from halo2_tpu_torch.ntt import dft_matmul as dm
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
-from halo2_tpu_torch.plonk.prover import create_proof
-from halo2_tpu_torch.plonk.verifier import verify_proof
+from halo2_tpu_torch.plonk.prover import (create_proof,
+                                          create_proof_from_witness,
+                                          create_proof_multi, create_witness)
+from halo2_tpu_torch.plonk.verifier import verify_proof, verify_proof_multi
 from halo2_tpu_torch.poly.commitment import Params
 from halo2_tpu_torch.utils import build, profiling
 from halo2_tpu_torch.utils.profiling import bound_ms as _bound
 from halo2_tpu_torch.utils.profiling import max_abs_err as _max_err
 from halo2_tpu_torch.utils.profiling import time_cuda as _time_cuda
-from tests.data.torch_golden_circuits import argument_circuit
+from tests.data.torch_golden_circuits import argument_circuit, multi_circuits
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_proof.json")
 GOLDEN_ARGS = os.path.join(ROOT, "tests", "data", "torch_golden_args.json")
+GOLDEN_MULTI = os.path.join(ROOT, "tests", "data", "torch_golden_multi.json")
 DFT_PROBE = os.path.join(ROOT, "examples", "torch_mxu_dft_probe.py")
 
 # 32-bit integer multiply-add-class instructions of one field operation, as
@@ -192,13 +210,49 @@ def phase_env(out):
 
 
 # the circuit of each driven path, for the shapes its k-row proof gives
-# the kernels (configured only: no witness)
-PATH_CIRCUITS = (("prove", lambda: MulChainCircuit(1)),
-                 ("args", lambda: AllArgsCircuit()))
+# the kernels (configured only: no witness), the instances a proof and
+# whether it opens with SHPLONK
+PATH_CIRCUITS = (("prove", lambda: MulChainCircuit(1), 1, False),
+                 ("args", lambda: AllArgsCircuit(), 1, False),
+                 ("multi", lambda: AllArgsCircuit(), 2, True))
+# the witness seeds of the multi path's two AllArgsCircuit instances
+MULTI_SEEDS = (5, 6)
 
 
-def _shapes(k: int, path: str, circuit):
-    """The shapes the k-row proof of `circuit` gives each kernel."""
+def _shplonk_sets(cs, proofs: int) -> dict:
+    """The commitments of each SHPLONK rotation set of a proof of `proofs`
+    instances of a circuit (the prover's query stream): {rotations: count}.
+    """
+    last = -(cs.blinding_factors() + 1)
+    sets = {}
+
+    def add(rots, count):
+        key = tuple(sorted(set(rots)))
+        sets[key] = sets.get(key, 0) + count
+
+    for queries, per in ((cs.instance_queries, proofs),
+                         (cs.advice_queries, proofs), (cs.fixed_queries, 1)):
+        rots = {}
+        for col, rot in queries:
+            rots.setdefault(col.index, set()).add(rot)
+        for r in rots.values():
+            add(r, per)
+    products = -(-len(cs.permutation.columns) // (cs.degree() - 2))
+    chains = [products] + [len(lk.input_expressions_sets)
+                           for lk in cs.lookups]
+    for zs in chains:
+        if zs:
+            add((last, 0, 1), proofs * (zs - 1))
+            add((0, 1), proofs)
+    add((0,), len(cs.permutation.columns) + 2 + proofs * len(cs.lookups))
+    add((0, 1), proofs * len(cs.shuffles))
+    return {rots: c for rots, c in sets.items() if c}
+
+
+def _shapes(k: int, path: str, circuit, proofs: int = 1,
+            shplonk: bool = False):
+    """The shapes the k-row proof of `proofs` instances of `circuit` gives
+    each kernel."""
     cs = ConstraintSystem()
     circuit.configure(cs)
     cs.chunk_lookups()
@@ -216,13 +270,18 @@ def _shapes(k: int, path: str, circuit):
     sets = [lk.input_expressions_sets for lk in cs.lookups]
     # the widest commitment batch (one msm_many, one Horner lane a column):
     # keygen's fixed columns (selectors included) or permutation columns,
-    # the advice, the instance, the quotient's pieces, the m columns, the
-    # lookup zs (one a set) or the shuffle zs; the permutation's grand
-    # products are at most one a permutation column
+    # every proof's advice, instance or m columns, the quotient's pieces,
+    # every proof's lookup zs (one a set) and shuffle zs; the
+    # permutation's grand products are at most one a permutation column
     lanes = max(cs.num_fixed_columns + cs.num_selectors,
-                len(cs.permutation.columns), cs.num_advice_columns,
-                cs.num_instance_columns, qd, len(sets),
-                sum(len(s) for s in sets), len(cs.shuffles))
+                len(cs.permutation.columns), proofs * cs.num_advice_columns,
+                proofs * cs.num_instance_columns, qd, proofs * len(sets),
+                proofs * (sum(len(s) for s in sets) + len(cs.shuffles)))
+    # K1's column batches: the commitment batch, and SHPLONK's fold of its
+    # largest rotation set, (16, Q, n)
+    batches = [lanes]
+    if shplonk:
+        batches.append(max(_shplonk_sets(cs, proofs).values()))
     # prefix_mul's lengths (batch_inverse): a column of n, and the logup
     # grand sums' inverses, C inputs and the table of a lookup's first set,
     # C inputs of each further set
@@ -233,7 +292,8 @@ def _shapes(k: int, path: str, circuit):
     return {"path": path, "n": n, "ext_n": ext_n, "ext_k": ext_k,
             "scan": windows * block, "windows": windows, "c": c,
             "block": block, "nb": (1 << (c - 1)) + 1,
-            "horner_lanes": lanes, "prefix_lengths": sorted(scan)}
+            "horner_lanes": lanes, "batches": batches,
+            "prefix_lengths": sorted(scan)}
 
 
 def _other_paths(shs, key) -> list:
@@ -266,20 +326,19 @@ def _k1_binop(shs, gen, device) -> dict:
                     cuda_ops.binop(op, F, a[:, :2 * h:2], b[:, 1::2]),
                     cuda_ops.plain_binop(op, F, a[:, :2 * h:2].contiguous(),
                                          b[:, 1::2].contiguous())))
-            # a column batch (16, C, N) as each path gives it: against a
-            # batch of the same shape, one element, and a row (16, 1, N)
-            # broadcast over the columns
-            for x in shs:
-                for n in (x["n"], x["ext_n"]):
-                    shape = (x["horner_lanes"], n)
-                    a = _rand_field(F, shape, gen)
-                    b = _rand_field(F, shape, gen)
-                    row = b[:, :1]
-                    for rhs, full in ((b, b), (b[:, 0, 0], b[:, :1, :1]),
-                                      (row, row)):
-                        worst = max(worst, _max_err(
-                            cuda_ops.binop(op, F, a, rhs),
-                            cuda_ops.plain_op(op, F, a, full)))
+            # each column batch (16, C, N) the paths give it: against a
+            # batch of the same shape, one element, a row (16, 1, N) and a
+            # column (16, C, 1) broadcast (SHPLONK's fold weights)
+            for cols, n in sorted({(c, m) for x in shs for c in x["batches"]
+                                   for m in (x["n"], x["ext_n"])}):
+                a = _rand_field(F, (cols, n), gen)
+                b = _rand_field(F, (cols, n), gen)
+                for rhs, full in ((b, b), (b[:, 0, 0], b[:, :1, :1]),
+                                  (b[:, :1], b[:, :1]),
+                                  (b[:, :, :1], b[:, :, :1])):
+                    worst = max(worst, _max_err(
+                        cuda_ops.binop(op, F, a, rhs),
+                        cuda_ops.plain_op(op, F, a, full)))
             n = sh["ext_n"]
             a, b = _rand_field(F, (n,), gen), _rand_field(F, (n,), gen)
             t = _times(lambda: cuda_ops.binop(op, F, a, b),
@@ -549,7 +608,8 @@ def _k5_packed(sh, gen, device, pts) -> dict:
     e = _entry("add_mixed_packed", "halo2_tpu_torch/csrc/point_kernels.cu",
                "halo2_tpu/curves/pallas_point.py:73", [v],
                f"carry 3 x (16, {m}), packed (16, {m}), sign ({m},)")
-    e["launches_from"] = ("the prove and args paths launch it 0 times: "
+    e["launches_from"] = ("the prove, args and multi paths launch it 0 "
+                          "times: "
                           "msm_scan runs every step of a window group in "
                           "one launch")
     return e
@@ -586,6 +646,11 @@ def _scan_inputs(gen, device, G, n, c, kind):
         elif kind == "empty buckets between":
             mag = torch.tensor([3, 100, nb - 1], dtype=torch.int32,
                                device=device)[rand(3).long()]
+        elif kind == "digits at and above nb":
+            # what a max_bits below the scalars' would give: such digits
+            # fall in no bucket, in every window and in the last
+            mag = rand(nb + 4)
+            mag[:, 0], mag[:, -1] = nb, nb + 3
         else:
             mag = rand(nb)
     key, order = torch.sort((mag << 1) | neg, dim=1, stable=True)
@@ -617,7 +682,8 @@ def _msm_scan(sh, gen, device, pts, ptxas) -> dict:
     edges = []
     for kind, G_, S_ in (("one bucket", 3, 4), ("digit 0 and the top", 3, 4),
                          ("all signs set", 3, 4), ("digits", 1, 4),
-                         ("digits", 3, 1), ("empty buckets between", 3, 4)):
+                         ("digits", 3, 1), ("empty buckets between", 3, 4),
+                         ("digits at and above nb", 3, 4)):
         o, k = _scan_inputs(gen, device, G_, S_ * B, sh["c"], kind)
         err = _max_err(
             _flat_scan(cuda_point.msm_scan(rows, o, k, B, nb)),
@@ -758,7 +824,8 @@ def _point_ladder(sh, gen, device, pts) -> dict:
 def phase_kernels(k: int, device, ptxas: dict) -> list:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    shs = [_shapes(k, path, make()) for path, make in PATH_CIRCUITS]
+    shs = [_shapes(k, path, make(), proofs, shplonk)
+           for path, make, proofs, shplonk in PATH_CIRCUITS]
     sh = shs[0]
     for x in shs[1:]:
         for key in ("n", "windows", "c", "block", "nb", "scan"):
@@ -822,10 +889,56 @@ def phase_golden(device):
         if not verify_proof(params.verifier(1), vk, rec["instances"], proof):
             raise AssertionError(f"golden proof of {name} rejected")
         args[name] = {"k": rec["k"], "proof_bytes": len(proof)}
+    multi = _golden_multi(device)
     print(json.dumps({"golden": {
         "k": golden["k"], "seeds": sorted(golden["proofs"]),
-        "arguments": args, "bytes_equal": True, "verified": True,
+        "arguments": args, "multi": multi, "bytes_equal": True,
+        "verified": True,
         "seconds": round(time.time() - t0, 2)}}), flush=True)
+
+
+def _golden_multi(device) -> dict:
+    """Every proof of torch_golden_multi.json on the card: the pinned vk,
+    the proof bytes, the port's verifier; and the proof from the JAX
+    package's witness file."""
+    with open(GOLDEN_MULTI) as fh:
+        golden = json.load(fh)
+    out = {}
+    keys = {}
+    for name, rec in golden["proofs"].items():
+        empty, circuits = multi_circuits(name, rec)
+        at = (rec["k"], rec["params_seed"], type(empty).__name__)
+        if at not in keys:
+            params = Params.unsafe_setup(rec["k"], seed=rec["params_seed"],
+                                         device=device)
+            keys[at] = (params,) + keygen(params, empty, device=device)
+        params, vk, pk = keys[at]
+        if vk.pinned() != rec["pinned_vk"]:
+            raise AssertionError(f"golden pinned vk differs for {name}")
+        proof = create_proof_multi(params, pk, circuits, rec["instances"],
+                                   seed=rec["prover_seed"],
+                                   use_gwc=rec["use_gwc"], device=device)
+        if proof.hex() != rec["proof_hex"]:
+            raise AssertionError(f"golden proof bytes differ for {name}")
+        if not verify_proof_multi(params.verifier(1), vk, rec["instances"],
+                                  proof, use_gwc=rec["use_gwc"]):
+            raise AssertionError(f"golden proof of {name} rejected")
+        out[name] = {"k": rec["k"], "proofs": len(circuits),
+                     "opening": "gwc" if rec["use_gwc"] else "shplonk",
+                     "proof_bytes": len(proof)}
+    files = golden["files"]
+    params, vk, pk = keys[(files["k"], files["params_seed"], "SimpleCircuit")]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "witness.bin")
+        with open(path, "wb") as fh:
+            fh.write(bytes.fromhex(files["witness_hex"]))
+        proof = create_proof_from_witness(params, pk, files["instances"],
+                                          path, seed=files["prover_seed"],
+                                          device=device)
+    if proof.hex() != files["proof_hex"]:
+        raise AssertionError("golden proof from the witness file differs")
+    out["witness_file"] = {"k": files["k"], "proof_bytes": len(proof)}
+    return out
 
 
 def _reset_counts():
@@ -843,48 +956,68 @@ FAMILY_LIMITS_K16 = {"K1": 6000, "K4": 1500}
 OFF_PROVE_PATH = ("add_mixed_packed",)
 
 
-def _rejects(pv, vk, instances, proof) -> bool:
+def _rejects(pv, vk, instances_list, proof, use_gwc=True) -> bool:
     try:
-        return not verify_proof(pv, vk, instances, proof)
+        return not verify_proof_multi(pv, vk, instances_list, proof,
+                                      use_gwc=use_gwc)
     except ValueError:
         return True
 
 
-def _drive(name, k, seed, device, circuit, instances, floor_planner=None,
-           extra=None, family_limits=None) -> dict:
-    """unsafe_setup -> keygen -> create_proof -> verify_proof, with every
-    launch count set to 0 just before and read just after; a proof with one
-    byte flipped and a wrong instance must be rejected.  Prints the path's
-    JSON line (with `extra` in it) and returns its launches; fails where a
-    family of kernels launched more than `family_limits` gives it."""
+def _drive(name, k, seed, device, circuits, instances_list,
+           floor_planner=None, extra=None, family_limits=None,
+           use_gwc=True, after=None) -> dict:
+    """unsafe_setup -> keygen -> create_proof_multi -> verify_proof_multi
+    for one or more instances of one circuit, with every launch count set
+    to 0 just before and read just after; a proof with one byte flipped
+    and wrong instances (swapped where the proofs' differ, else one
+    altered) must be rejected, and BatchVerifier must accept.  Then
+    `after(params, vk, pk)`, whose dict joins the path's JSON line (with
+    `extra`).  Prints the line and returns the path's launches; fails
+    where a family of kernels launched more than `family_limits` gives
+    it."""
     torch.cuda.reset_peak_memory_stats(device)
     profiling.reset()
     _reset_counts()                          # the path starts here
     phases = profiling.PhaseTimes(device)
     params = Params.unsafe_setup(k, seed=seed, device=device)
     phases("unsafe_setup")
-    vk, pk = keygen(params, circuit, floor_planner=floor_planner,
+    vk, pk = keygen(params, circuits[0], floor_planner=floor_planner,
                     device=device)
     phases("keygen")
     prover_phases = profiling.PhaseTimes(device)
-    proof = create_proof(params, pk, circuit, instances, seed=seed + 1,
-                         floor_planner=floor_planner, device=device,
-                         phases=prover_phases)
+    proof = create_proof_multi(params, pk, circuits, instances_list,
+                               seed=seed + 1, floor_planner=floor_planner,
+                               use_gwc=use_gwc, device=device,
+                               phases=prover_phases)
     phases("create_proof")
     launches = {**cuda_ops.launch_counts, **cuda_point.launch_counts}
     launches = dict(launches)                # and ends here
+    peak = torch.cuda.max_memory_allocated(device)
     families = {fam: sum(launches[c] for c in counters)
                 for fam, counters in FAMILIES.items()}
+    counters = dict(profiling.counters)
     pv = params.verifier(1)
-    ok = verify_proof(pv, vk, instances, proof)
+    ok = verify_proof_multi(pv, vk, instances_list, proof, use_gwc=use_gwc)
     phases("verify_proof")
+    batch = BatchVerifier(seed=seed)
+    verify_proof_multi(pv, vk, instances_list, proof, use_gwc=use_gwc,
+                       strategy=batch)
+    batch_ok = batch.finalize(pv)
     tampered = bytearray(proof)
     tampered[-40] ^= 1
-    tampered_rejected = _rejects(pv, vk, instances, bytes(tampered))
-    wrong = [[(v + 1) % P for v in col] for col in instances]
-    wrong_rejected = _rejects(pv, vk, wrong, proof)
+    tampered_rejected = _rejects(pv, vk, instances_list, bytes(tampered),
+                                 use_gwc)
+    if len(instances_list) > 1 and instances_list[0] != instances_list[-1]:
+        wrong = instances_list[::-1]
+    else:
+        wrong = [[[(v + 1) % P for v in col] for col in instances_list[0]]]
+        wrong += instances_list[1:]
+    wrong_rejected = _rejects(pv, vk, wrong, proof, use_gwc)
     if not ok:
         raise AssertionError(f"{name}: the proof was rejected")
+    if not batch_ok:
+        raise AssertionError(f"{name}: BatchVerifier rejected the proof")
     if not tampered_rejected:
         raise AssertionError(f"{name}: a tampered proof was accepted")
     if not wrong_rejected:
@@ -897,16 +1030,17 @@ def _drive(name, k, seed, device, circuit, instances, floor_planner=None,
         if launches[kernel]:
             raise AssertionError(f"{name}: kernel {kernel} was launched "
                                  f"{launches[kernel]} times on the path")
-    counters = dict(profiling.counters)
     for kernel, per in (("msm_scan", "msm_window_groups"),
                         ("horner", "horner_calls")):
         if launches[kernel] != counters[per]:
             raise AssertionError(f"{name}: {kernel} made {launches[kernel]} "
                                  f"launches for {counters[per]} {per}")
+    more = after(params, vk, pk) if after else {}
     cs = vk.cs
     print(json.dumps({name: {
         "k": k, "rows": 1 << k, "usable_rows": cs.usable_rows(1 << k),
         **(extra or {}),
+        "proofs": len(circuits), "opening": "gwc" if use_gwc else "shplonk",
         "degree": cs.degree(), "extended_k": vk.domain.extended_k,
         "advice_columns": cs.num_advice_columns,
         "fixed_columns": cs.num_fixed_columns,
@@ -914,14 +1048,14 @@ def _drive(name, k, seed, device, circuit, instances, floor_planner=None,
         "shuffle_units": [len(g.units) for g in cs.shuffles],
         "range_checks": len(cs.range_check),
         "proof_bytes": len(proof), "verified": ok,
+        "batch_verified": batch_ok,
         "tampered_rejected": tampered_rejected,
         "wrong_instance_rejected": wrong_rejected,
         "seconds": {n_: round(s, 3) for n_, s in phases.seconds.items()},
         "create_proof_seconds": {n_: round(s, 3) for n_, s
                                  in prover_phases.seconds.items()},
         "launches": launches, "launches_by_family": families,
-        "counters": counters,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}}),
+        "counters": counters, "peak_memory_bytes": peak, **more}}),
         flush=True)
     for fam, most in (family_limits or {}).items():
         if families[fam] > most:
@@ -933,8 +1067,8 @@ def _drive(name, k, seed, device, circuit, instances, floor_planner=None,
 def phase_prove(k: int, seed: int, device) -> dict:
     """A row-filling chain of mul gates (gates + permutation)."""
     circuit = MulChainCircuit(MulChainCircuit.steps_for(k), a=3, b=5)
-    return _drive("prove", k, seed, device, circuit,
-                  [[circuit.expected_out()]],
+    return _drive("prove", k, seed, device, [circuit],
+                  [[[circuit.expected_out()]]],
                   extra={"rows_assigned": 2 * circuit.steps},
                   family_limits=FAMILY_LIMITS_K16 if k == 16 else None)
 
@@ -942,8 +1076,73 @@ def phase_prove(k: int, seed: int, device) -> dict:
 def phase_args(k: int, seed: int, device) -> dict:
     """Every argument in one proof: AllArgsCircuit over all usable rows."""
     circuit = AllArgsCircuit(AllArgsCircuit.usable_rows(k))
-    return _drive("args", k, seed, device, circuit, [[circuit.instance()]],
-                  FlatFloorPlanner)
+    return _drive("args", k, seed, device, [circuit],
+                  [[[circuit.instance()]]], FlatFloorPlanner)
+
+
+def _file_round_trip(circuit, instances, seed, device):
+    """`after` of the multi path: params, circuit data, vk and the
+    witness of `circuit` to files and back; the proof from the witness
+    file on the reloaded key against create_proof on the in-memory one
+    (SHPLONK, one seed), and the reloaded vk verifying it."""
+    def run(params, vk, pk):
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = {f: os.path.join(tmp, f) for f in
+                    ("params.bin", "cd.npz", "vk.bin", "witness.bin")}
+            h2io.save_params(params, path["params.bin"])
+            h2io.save_circuit_data(pk, path["cd.npz"])
+            h2io.save_vk(vk, path["vk.bin"])
+            create_witness(pk, circuit, instances, path["witness.bin"],
+                           floor_planner=FlatFloorPlanner)
+            sizes = {f: os.path.getsize(p_) for f, p_ in path.items()}
+            written = time.time()
+            params2 = h2io.load_params(path["params.bin"], device=device)
+            vk2, pk2 = h2io.load_circuit_data(params2, path["cd.npz"])
+            vk3 = h2io.load_vk(params2, circuit, path["vk.bin"],
+                               floor_planner=FlatFloorPlanner)
+            loaded = time.time()
+            from_file = create_proof_from_witness(
+                params2, pk2, instances, path["witness.bin"], seed=seed,
+                use_gwc=False, device=device)
+        proved = time.time()
+        direct = create_proof(params, pk, circuit, instances, seed=seed,
+                              floor_planner=FlatFloorPlanner, use_gwc=False,
+                              device=device)
+        if from_file != direct:
+            raise AssertionError("multi: the proof from the witness file "
+                                 "differs from create_proof's")
+        if not vk2.pinned() == vk3.pinned() == vk.pinned():
+            raise AssertionError("multi: a reloaded vk differs")
+        if not verify_proof(params2.verifier(1), vk3, instances, from_file,
+                            use_gwc=False):
+            raise AssertionError("multi: the reloaded vk rejected the proof")
+        return {"file_round_trip": {
+            "bytes": sizes, "bytes_equal": True, "verified": True,
+            "seconds": {"write": round(written - t0, 3),
+                        "load": round(loaded - written, 3),
+                        "create_proof_from_witness": round(proved - loaded,
+                                                           3)}}}
+    return run
+
+
+def phase_multi(k: int, seed: int, device) -> dict:
+    """Two AllArgsCircuit instances over all usable rows in one SHPLONK
+    proof, then the file round trip of instance 0."""
+    rows = AllArgsCircuit.usable_rows(k)
+    circuits = [AllArgsCircuit(rows, seed=s) for s in MULTI_SEEDS]
+    instances = [[[c.instance()]] for c in circuits]
+    cs = ConstraintSystem()
+    circuits[0].configure(cs)
+    cs.chunk_lookups()
+    cs.chunk_shuffles()
+    return _drive("multi", k, seed, device, circuits, instances,
+                  FlatFloorPlanner, use_gwc=False,
+                  extra={"witness_seeds": list(MULTI_SEEDS),
+                         "shplonk_sets": {str(list(r)): c for r, c in
+                                          _shplonk_sets(cs, 2).items()}},
+                  after=_file_round_trip(circuits[0], instances[0], seed + 2,
+                                         device))
 
 
 def _load_dft_probe():
@@ -1028,7 +1227,7 @@ def phase_dft(device, smi: str):
         "shape": f"lo, hi ({DFT_SIZES[0] * dm.NB}, {DFT_B}) float32 -> "
                  f"(17, {DFT_SIZES[0]}, {DFT_B})",
         "launches_from": "the dft phase (dft_matmul at m = 16 and 64); the "
-                         "prove and args paths launch it 0 times",
+                         "prove, args and multi paths launch it 0 times",
         "variants": [variant(m) for m in DFT_SIZES]}
     return entry, launches
 
@@ -1040,7 +1239,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
-ALL_PHASES = "env,kernels,golden,prove,args,dft"
+ALL_PHASES = "env,kernels,golden,prove,args,multi,dft"
 
 
 def main(argv=None) -> int:
@@ -1070,6 +1269,8 @@ def main(argv=None) -> int:
         paths["prove"] = phase_prove(args.k, args.seed, device)
     if "args" in phases:
         paths["args"] = phase_args(args.k, args.seed, device)
+    if "multi" in phases:
+        paths["multi"] = phase_multi(args.k, args.seed, device)
     if "dft" in phases:
         entry, paths["dft"] = phase_dft(device, out["smi"])
         entries.append(entry)

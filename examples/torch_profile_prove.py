@@ -2,15 +2,18 @@
 """Where one halo2_tpu_torch proof spends its time on the card.
 
     python3 examples/torch_profile_prove.py [--k K] [--circuit NAME]
-                                            [--show TEXT]
+                                            [--shplonk] [--show TEXT]
 
 Sets up and keys a circuit at 2^K rows (`mulchain`, the default: the
 row-filling MulChainCircuit, gates + permutation; `allargs`:
 AllArgsCircuit over every usable row, every argument of the proof system,
-with FlatFloorPlanner), proves once to warm up, then proves again under torch.profiler (CPU + CUDA activities)
-and prints one JSON object: the proof's wall seconds, the summed device
-time of all kernels, the device's busy share of the wall time, the ten
-kernels with the most device time, the launches and device time of all
+with FlatFloorPlanner; `allargs2`: two AllArgsCircuit instances, witness
+seeds 5 and 6, in one proof through create_proof_multi), opened with GWC
+or, with --shplonk, SHPLONK; proves once to warm up, then proves again
+under torch.profiler (CPU + CUDA activities) and prints one JSON object:
+the proof's wall seconds, the summed device time of all kernels, the
+device's busy share of the wall time, the ten kernels with the most
+device time, the launches and device time of all
 kernels and of PyTorch's elementwise kernels (names holding
 "elementwise"), and with --show every kernel whose name contains TEXT
 (e.g. `scan_` for the three passes of the prefix-product scan).  With the
@@ -39,8 +42,10 @@ from halo2_tpu_torch.poly.commitment import Params  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k", type=int, default=16)
-    ap.add_argument("--circuit", choices=("mulchain", "allargs"),
+    ap.add_argument("--circuit", choices=("mulchain", "allargs", "allargs2"),
                     default="mulchain")
+    ap.add_argument("--shplonk", action="store_true",
+                    help="open with SHPLONK instead of GWC")
     ap.add_argument("--show", default=None,
                     help="also list every kernel whose name contains this")
     args = ap.parse_args()
@@ -49,26 +54,38 @@ def main() -> int:
         return 2
     device = torch.device("cuda", 0)
     planner = None
-    if args.circuit == "allargs":
+    if args.circuit.startswith("allargs"):
         from halo2_tpu_torch.circuit import FlatFloorPlanner
         from halo2_tpu_torch.circuits import AllArgsCircuit
-        circuit = AllArgsCircuit(AllArgsCircuit.usable_rows(args.k))
-        instances, planner = [[circuit.instance()]], FlatFloorPlanner
+        rows = AllArgsCircuit.usable_rows(args.k)
+        circuits = [AllArgsCircuit(rows, seed=s) for s in
+                    ((5, 6) if args.circuit == "allargs2" else (5,))]
+        instances = [[[c.instance()]] for c in circuits]
+        planner = FlatFloorPlanner
     else:
-        circuit = MulChainCircuit(MulChainCircuit.steps_for(args.k), a=3,
-                                  b=5)
-        instances = [[circuit.expected_out()]]
+        circuits = [MulChainCircuit(MulChainCircuit.steps_for(args.k), a=3,
+                                    b=5)]
+        instances = [[[circuits[0].expected_out()]]]
+    opening = {"use_gwc": False} if args.shplonk else {}
+
+    def prove(seed):
+        if len(circuits) > 1:
+            from halo2_tpu_torch.plonk.prover import create_proof_multi
+            return create_proof_multi(params, pk, circuits, instances,
+                                      seed=seed, floor_planner=planner,
+                                      device=device, **opening)
+        return create_proof(params, pk, circuits[0], instances[0], seed=seed,
+                            floor_planner=planner, device=device, **opening)
+
     params = Params.unsafe_setup(args.k, seed=7, device=device)
-    _, pk = keygen(params, circuit, floor_planner=planner, device=device)
-    create_proof(params, pk, circuit, instances, seed=1,
-                 floor_planner=planner, device=device)
+    _, pk = keygen(params, circuits[0], floor_planner=planner, device=device)
+    prove(1)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        create_proof(params, pk, circuit, instances, seed=2,
-                     floor_planner=planner, device=device)
+        prove(2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -94,6 +111,7 @@ def main() -> int:
                 "device_ms": round(sum(r[1] for r in picked) / 1e3, 3)}
     out = {"card": smi.stdout.strip().splitlines()[0], "k": args.k,
            "circuit": args.circuit,
+           "opening": "shplonk" if args.shplonk else "gwc",
            "create_proof_wall_s": round(wall, 4),
            "device_time_s": round(device_s, 4),
            "device_busy_share": round(device_s / wall, 4),

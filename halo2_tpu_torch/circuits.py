@@ -2,15 +2,17 @@
 constraints, a constant and a public input (`SimpleCircuit`,
 `MulChainCircuit`); logup lookups with two input sets and a shuffle
 (`LookupShuffleCircuit`); a range check by sorted column
-(`RangeCheckCircuit`); and every argument in one proof (`AllArgsCircuit`).
-Used by `chip_smoke.py` and the tests."""
+(`RangeCheckCircuit`); every argument in one proof (`AllArgsCircuit`); the
+reference's integration spec circuit (`PlonkApiCircuit`) and a
+`lookup_any` into a fixed column (`LookupAnyCircuit`).  Used by
+`chip_smoke.py` and the tests."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from halo2_tpu_torch.circuit import Cell
-from halo2_tpu_torch.fields.bn254 import FR_MODULUS
+from halo2_tpu_torch.fields.bn254 import FR_MODULUS, FR_ZETA
 from halo2_tpu_torch.plonk import Circuit
 
 P = FR_MODULUS
@@ -360,3 +362,158 @@ class AllArgsCircuit(Circuit):
             region.constrain_equal(Cell(config.a, 0), Cell(config.a, 1))
         layouter.assign_region("body", fn)
         layouter.constrain_instance(Cell(config.a, 0), config.inst, 0)
+
+
+class _PlonkApiConfig:
+    def __init__(self, a, b, c, d, e, sa, sb, sc, sm, sp, sl):
+        self.a, self.b, self.c, self.d, self.e = a, b, c, d, e
+        self.sa, self.sb, self.sc, self.sm, self.sp = sa, sb, sc, sm, sp
+        self.sl = sl
+
+
+class PlonkApiCircuit(Circuit):
+    """The reference's integration spec circuit (tests/plonk_api.rs): a
+    combined add-mult gate with a rotated product term, a public-input
+    gate, a lookup into a four-entry table, copy constraints; the
+    StandardCs chip's regions ten times over.  Column allocation order
+    shapes the pinned vk and is kept."""
+
+    A_VALUE = 2834758237 * FR_ZETA % P
+    INSTANCE = 2
+    LOOKUP_TABLE = [INSTANCE, A_VALUE, A_VALUE, 0]
+
+    def __init__(self, a=None, lookup_table=None):
+        self.a = a
+        self.lookup_table = list(self.LOOKUP_TABLE if lookup_table is None
+                                 else lookup_table)
+
+    def without_witnesses(self):
+        return PlonkApiCircuit(None, self.lookup_table)
+
+    def configure(self, meta):
+        e = meta.advice_column()
+        a = meta.advice_column()
+        b = meta.advice_column()
+        sf = meta.fixed_column()
+        c = meta.advice_column()
+        d = meta.advice_column()
+        p = meta.instance_column()
+        for col in (a, b, c):
+            meta.enable_equality(col)
+        sm = meta.fixed_column()
+        sa = meta.fixed_column()
+        sb = meta.fixed_column()
+        sc = meta.fixed_column()
+        sp = meta.fixed_column()
+        sl = meta.table_column()
+
+        meta.lookup("lookup", lambda m: [(m.query_advice(a, 0), sl)])
+
+        def combined_gate(m):
+            d_n = m.query_advice(d, 1)
+            a_c = m.query_advice(a, 0)
+            sf_c = m.query_fixed(sf, 0)
+            e_p = m.query_advice(e, -1)
+            b_c = m.query_advice(b, 0)
+            c_c = m.query_advice(c, 0)
+            sa_c = m.query_fixed(sa, 0)
+            sb_c = m.query_fixed(sb, 0)
+            sc_c = m.query_fixed(sc, 0)
+            sm_c = m.query_fixed(sm, 0)
+            return [("", a_c * sa_c + b_c * sb_c + a_c * b_c * sm_c
+                     - (c_c * sc_c) + sf_c * (d_n * e_p))]
+
+        meta.create_gate("Combined add-mult", combined_gate)
+
+        def public_gate(m):
+            a_c = m.query_advice(a, 0)
+            p_c = m.query_instance(p, 0)
+            sp_c = m.query_fixed(sp, 0)
+            return [("", sp_c * (a_c - p_c))]
+
+        meta.create_gate("Public input", public_gate)
+        for col in (sf, e, d, p, sm, sa, sb, sc, sp):
+            meta.enable_equality(col)
+        return _PlonkApiConfig(a, b, c, d, e, sa, sb, sc, sm, sp, sl)
+
+    def _row(self, layouter, name, a, b, c, fixed):
+        """One StandardCs row: a, a^4, b, b^4, c and the selectors
+        (sa, sb, sc, sm) = fixed; returns the cells of a, b, c."""
+        cfg = self._config
+
+        def fn(region):
+            lhs = region.assign_advice("lhs", cfg.a, 0, a)
+            region.assign_advice("lhs^4", cfg.d, 0,
+                                 None if a is None else pow(a, 4, P))
+            rhs = region.assign_advice("rhs", cfg.b, 0, b)
+            region.assign_advice("rhs^4", cfg.e, 0,
+                                 None if b is None else pow(b, 4, P))
+            out = region.assign_advice("out", cfg.c, 0, c)
+            for col, v in zip((cfg.sa, cfg.sb, cfg.sc, cfg.sm), fixed):
+                region.assign_fixed("s", col, 0, v)
+            return lhs.cell, rhs.cell, out.cell
+        return layouter.assign_region(name, fn)
+
+    def _copy(self, layouter, left, right):
+        def fn(region):
+            region.constrain_equal(left, right)
+            region.constrain_equal(left, right)
+        layouter.assign_region("copy", fn)
+
+    def synthesize(self, config, layouter):
+        self._config = config
+        a = self.a
+
+        def public_input(region):
+            cell = region.assign_advice("value", config.a, 0, 2)
+            region.assign_fixed("public", config.sp, 0, 1)
+            return cell.cell
+        layouter.assign_region("public_input", public_input)
+        a_sq = None if a is None else a * a % P
+        fin = None if a is None else (a + a_sq) % P
+        for _ in range(10):
+            a0, _, c0 = self._row(layouter, "raw_multiply", a, a, a_sq,
+                                  (0, 0, 1, 1))
+            a1, b1, _ = self._row(layouter, "raw_add", a, a_sq, fin,
+                                  (1, 1, 1, 0))
+            self._copy(layouter, a0, a1)
+            self._copy(layouter, b1, c0)
+
+        def table(region):
+            for index, value in enumerate(self.lookup_table):
+                region.assign_fixed("table col", config.sl.inner, index,
+                                    value)
+        layouter.assign_table("", table)
+
+
+class LookupAnyCircuit(Circuit):
+    """One advice column looked up in one fixed column (`lookup_any`): the
+    fixed column holds TABLE, the advice column `values` (0, which is in
+    the table, elsewhere)."""
+
+    TABLE = [0, 1, 2, 3, 4, 5, 6, 7]
+    VALUES = [3, 1, 4, 1, 5, 7, 2, 6]
+
+    def __init__(self, values=None):
+        self.values = values
+
+    def without_witnesses(self):
+        return LookupAnyCircuit()
+
+    def configure(self, meta):
+        a = meta.advice_column()
+        t = meta.fixed_column()
+        meta.lookup_any("in_table", lambda m: [(m.query_advice(a, 0),
+                                                m.query_fixed(t, 0))])
+        return a, t
+
+    def synthesize(self, config, layouter):
+        a, t = config
+        values = self.values or [None] * len(self.VALUES)
+
+        def fn(region):
+            for row, v in enumerate(self.TABLE):
+                region.assign_fixed("t", t, row, v)
+            for row, v in enumerate(values):
+                region.assign_advice("a", a, row, v)
+        layouter.assign_region("lookup_any", fn)

@@ -198,12 +198,16 @@ def plain_add_mixed_packed(carry, packed_xy, sign):
 def bucket_ends(d, nb: int):
     """ends[g, j] = (# of digits <= j in row g) - 1: in a row sorted by
     digit, the last position whose digit is <= j (-1 when there is none).
-    d: (G, n) digits below nb, in any order.  A histogram of the digits
-    (one bincount over all rows) and a running sum."""
+    d: (G, n) digits, in any order; a digit at or above nb falls in no
+    bucket (as `msm_scan_kernel` writes no slot for it).  A histogram of
+    the digits (one bincount over all rows, each row with a spare slot nb
+    that takes such digits and is cut off) and a running sum."""
     G = d.shape[0]
-    offs = torch.arange(G, device=d.device, dtype=torch.int64)[:, None] * nb
-    counts = torch.bincount((d.to(torch.int64) + offs).reshape(-1),
-                            minlength=G * nb).reshape(G, nb)
+    offs = torch.arange(G, device=d.device,
+                        dtype=torch.int64)[:, None] * (nb + 1)
+    counts = torch.bincount(
+        (d.to(torch.int64).clamp(max=nb) + offs).reshape(-1),
+        minlength=G * (nb + 1)).reshape(G, nb + 1)[:, :nb]
     return torch.cumsum(counts, dim=1) - 1
 
 
@@ -379,7 +383,8 @@ def msm_scan(rows: torch.Tensor, order: torch.Tensor, key: torch.Tensor,
     rows: (N, 16) int32, one 64-byte row a point (`pack_xy` words, x then
     y); order: (G, n) int64 point indices below N and key: (G, n) int32
     (digit << 1) | sign, both sorted by key along each window; n a
-    multiple of `block`; digits below nb.  Lane (g, b) adds the sorted
+    multiple of `block`; a digit at or above nb is added into its lane's
+    sum but falls in no bucket of the table.  Lane (g, b) adds the sorted
     positions b*S + s, s < S = n / block, in order, from the identity.
 
     Returns (totals, table, blk): totals, 3 coordinates of (16, G, block),

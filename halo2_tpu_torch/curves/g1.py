@@ -19,7 +19,8 @@ import torch
 
 from halo2_tpu_torch.curves import cuda_point
 from halo2_tpu_torch.fields.bn254 import fq
-from halo2_tpu_torch.fields.limbs import N_LIMBS, is_zero, to_numpy, to_tensor
+from halo2_tpu_torch.fields.limbs import (N_LIMBS, eq, is_zero, to_numpy,
+                                          to_tensor)
 from halo2_tpu_torch.utils import profiling
 
 
@@ -174,3 +175,35 @@ def decode_points(xy):
     xs = F.decode(arr[0])
     ys = F.decode(arr[1])
     return [None if x == 0 and y == 0 else (x, y) for x, y in zip(xs, ys)]
+
+
+def points_from_bytes(blob: bytes, device):
+    """Compressed points (32 bytes each: x little-endian, y's parity in
+    bit 255; all zero = the identity) -> (2, 16, N) Montgomery affine limbs
+    on `device`, identity as (0, 0).  The square roots y = (x^3 + 3)^((q+1)
+    /4) are one `pow` launch on the card for all N, not N host `pow`s.
+    Raises ValueError on an encoding that `point_from_bytes` refuses
+    (x >= q, x^3 + 3 not a square, the sign bit set on x = 0)."""
+    F = fq(device)
+    raw = np.frombuffer(blob, dtype=np.uint8).reshape(-1, 32).copy()
+    sign = raw[:, 31] >> 7
+    raw[:, 31] &= 0x7F
+    limbs = np.ascontiguousarray(raw.view("<u2").T)       # (16, N) x
+    q_limbs = [(F.p >> (16 * i)) & 0xFFFF for i in range(N_LIMBS)]
+    below, equal = np.zeros(len(sign), bool), np.ones(len(sign), bool)
+    for i in range(N_LIMBS - 1, -1, -1):
+        below |= equal & (limbs[i] < q_limbs[i])
+        equal &= limbs[i] == q_limbs[i]
+    zero = ~limbs.any(axis=0)
+    if not below.all() or (zero & (sign == 1)).any():
+        raise ValueError("invalid point encoding")
+    x = F.to_mont(to_tensor(limbs, device))
+    y2 = F.add(F.mul(F.mul(x, x), x), F.encode_scalar(3))
+    y = F.pow_static(y2, (F.p + 1) // 4)
+    nonzero = torch.from_numpy(~zero).to(device)
+    if not bool((eq(F.mul(y, y), y2) | ~nonzero).all()):
+        raise ValueError("invalid point encoding")
+    odd = (F.from_mont(y)[0] & 1).cpu().numpy() != sign
+    y = torch.where(torch.from_numpy(odd).to(device)[None], F.neg(y), y)
+    keep = nonzero[None]
+    return torch.stack([torch.where(keep, x, 0), torch.where(keep, y, 0)])

@@ -17,14 +17,15 @@ same transcript order, device-first data flow:
   9. vanishing.construct: divide by t, extended_to_coeff, split, commit -> x
  10. all query evals written in order (instance, advice, fixed, vanishing
      random, permutation common, permutation sets, lookups, shuffles)
- 11. GWC multiopen
+ 11. GWC or SHPLONK multiopen
+
+Several instances of one circuit go into one proof (create_proof_multi):
+steps 2-7 and 10 run per proof, in the reference's transcript order, and
+the h numerator is chained across proofs before one quotient.
 
 Randomness is injectable (`seed`) so proofs are reproducible in tests —
 the reference uses OsRng (prover.rs:286); byte-level determinism here is a
 feature for differential testing.
-
-One circuit instance per proof, opened with GWC (SHPLONK is refused by
-name): gates, permutation, logup lookups, shuffles and range checks.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 from halo2_tpu_torch.circuit import Assignment, Cell, SimpleFloorPlanner
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.multiopen import ProverQuery
-from halo2_tpu_torch.multiopen import gwc
+from halo2_tpu_torch.multiopen import gwc, shplonk
 from halo2_tpu_torch.plonk import logup_prover, shuffle_prover
 from halo2_tpu_torch.plonk import permutation as perm_mod
 from halo2_tpu_torch.plonk.error import (InstanceTooLarge,
@@ -216,20 +217,108 @@ def m_commit_bits(m_bits: int) -> int:
     return _quantize_max_bits(max(m_bits, 16))
 
 
+def _pad_instances(cs, n, usable_rows, instances):
+    """Instance columns zero-padded to n rows (InstanceTooLarge /
+    InvalidInstancesError on a wrong shape)."""
+    cols = []
+    for col in instances:
+        if len(col) > usable_rows:
+            raise InstanceTooLarge()
+        cols.append(list(col) + [0] * (n - len(col)))
+    if len(cols) != cs.num_instance_columns:
+        raise InvalidInstancesError()
+    return cols
+
+
+def _synthesize(pk, circuit, instance_cols, floor_planner):
+    """Witness synthesis, the batch inversion of deferred rational cells
+    (poly.rs:148-173) and the range-check fill: the WitnessCollection."""
+    cs = pk.vk.cs
+    n = 1 << pk.vk.k
+    witness = WitnessCollection(cs, n, cs.usable_rows(n), instance_cols)
+    planner = floor_planner or SimpleFloorPlanner
+    planner.synthesize(witness, circuit, witness_config(pk, circuit),
+                       cs.constants)
+    witness.resolve_deferred()
+    witness.fill_range_checks()
+    return witness
+
+
+def synthesize_witness(pk, circuit, instances, floor_planner=None):
+    """Witness synthesis and the range-check fill only: (advice host
+    columns, padded instance columns).  Backs the create_witness /
+    create_proof_from_witness split (prover.rs:895-1523)."""
+    cs = pk.vk.cs
+    n = 1 << pk.vk.k
+    instance_cols = _pad_instances(cs, n, cs.usable_rows(n), instances)
+    witness = _synthesize(pk, circuit, instance_cols, floor_planner)
+    return witness.advice, instance_cols
+
+
+def create_witness(pk, circuit, instances, path: str, floor_planner=None):
+    """Synthesize the witness and store it at `path` (io.save_witness)."""
+    from halo2_tpu_torch.io.serialization import save_witness
+    advice, _ = synthesize_witness(pk, circuit, instances, floor_planner)
+    save_witness(advice, path)
+
+
+def create_proof_from_witness(params, pk, instances, path: str,
+                              seed: int | None = None, use_gwc: bool = True,
+                              device="cuda", phases=None) -> bytes:
+    """Prove from a witness file (create_witness), skipping synthesis: the
+    same bytes as create_proof with the same seed."""
+    from halo2_tpu_torch.io.serialization import load_witness
+    witness_advice = load_witness(path, require_device(device))
+    return create_proof(params, pk, None, instances, seed=seed,
+                        use_gwc=use_gwc, device=device, phases=phases,
+                        witness_advice=witness_advice)
+
+
 def create_proof(params, pk, circuit, instances, seed: int | None = None,
                  floor_planner=None, use_gwc: bool = True, device="cuda",
-                 phases=None) -> bytes:
+                 phases=None, witness_advice=None) -> bytes:
     """Prove one circuit instance. instances: list of instance columns
     (each a list of ints, length <= usable rows). Returns proof bytes.
-    `device` must be the one `params` and `pk` live on; `phases` is an
-    optional utils.profiling.PhaseTimes that receives per-phase seconds."""
+    witness_advice: optional ((16, C, n) Montgomery Lagrange advice,
+    per-column max bits), as io.load_witness gives it, instead of
+    synthesis."""
+    return create_proof_multi(
+        params, pk, [circuit], [instances], seed=seed,
+        floor_planner=floor_planner, use_gwc=use_gwc, device=device,
+        phases=phases,
+        witness_advice=None if witness_advice is None else [witness_advice])
+
+
+def _cat(tensors):
+    """(16, C_i, n) stacks -> one (16, sum C_i, n) (no copy for one)."""
+    return tensors[0] if len(tensors) == 1 else torch.cat(tensors, dim=1)
+
+
+def _split(stack, counts):
+    """The inverse of _cat: (16, sum C_i, n) -> [(16, C_i, n)]."""
+    if len(counts) == 1:
+        return [stack]
+    return list(torch.split(stack, counts, dim=1))
+
+
+def create_proof_multi(params, pk, circuits, instances_list,
+                       seed: int | None = None, floor_planner=None,
+                       use_gwc: bool = True, device="cuda", phases=None,
+                       witness_advice=None) -> bytes:
+    """Prove several instances of one circuit in one proof (the
+    reference's create_proof over &[ConcreteCircuit], prover.rs:206-850):
+    every per-proof commitment and evaluation in the reference transcript
+    order, the h numerator chained across proofs, one quotient.  `device`
+    must be the one `params` and `pk` live on; `phases` is an optional
+    utils.profiling.PhaseTimes that receives per-phase seconds; use_gwc
+    False opens with SHPLONK.  witness_advice: optional list, per proof,
+    of what io.load_witness returns, instead of synthesis."""
     device = require_device(device)
     if params.device != device:
         raise ValueError(f"params are on {params.device}, create_proof was "
                          f"asked for {device}")
-    if not use_gwc:
-        raise NotImplementedError(
-            "the SHPLONK multiopen is not ported to halo2_tpu_torch yet")
+    if len(circuits) != len(instances_list):
+        raise ValueError("one instance list per circuit")
     vk = pk.vk
     cs = vk.cs
     domain = vk.domain
@@ -240,120 +329,143 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     rng = random.Random(seed)
     transcript = Blake2bWrite()
     m = len(cs.permutation.columns)
+    proofs = range(len(circuits))
+    n_adv, n_inst = cs.num_advice_columns, cs.num_instance_columns
 
     _pm = phase_marker(device, phases)
-    # 1. vk hash + instance commitments (absorbed as common points)
+    # 1. vk hash + every proof's instance commitments, in one batch
+    # (absorbed as common points)
     vk.hash_into(transcript)
-    instance_cols = []
-    for col in instances:
-        if len(col) > usable_rows:
-            raise InstanceTooLarge()
-        instance_cols.append(list(col) + [0] * (n - len(col)))
-    if len(instance_cols) != cs.num_instance_columns:
-        raise InvalidInstancesError()
-    instance_lagrange = (
-        torch.stack([F.encode(c) for c in instance_cols], dim=1)
-        if instance_cols else F.zeros((0, n)))
+    instance_cols = [_pad_instances(cs, n, usable_rows, inst)
+                     for inst in instances_list]
+    instance_lagrange = [
+        torch.stack([F.encode(c) for c in cols], dim=1) if cols
+        else F.zeros((0, n)) for cols in instance_cols]
     for pt in params.commit_many_affine(
-            [instance_lagrange[:, i, :]
-             for i in range(cs.num_instance_columns)], base="lagrange"):
+            [lag[:, i, :] for lag in instance_lagrange
+             for i in range(n_inst)], base="lagrange"):
         transcript.common_point(pt)
 
     _pm("instances")
-    # 2. witness synthesis + advice commitments
-    witness = WitnessCollection(cs, n, usable_rows, instance_cols)
-    planner = floor_planner or SimpleFloorPlanner
-    planner.synthesize(witness, circuit, witness_config(pk, circuit),
-                       cs.constants)
-    # batch_invert_assigned: ONE inversion for every deferred rational cell
-    # (poly.rs:148-173)
-    witness.resolve_deferred()
-    witness.fill_range_checks()
-    # u16 blinding rows (prover.rs:283-290); named advice exempt
-    for ci, col in enumerate(witness.advice):
-        if ci in cs.named_advices:
-            continue
-        for r in range(usable_rows, n):
-            col[r] = rng.randrange(1 << 16)
-        witness.max_value[ci] = max(witness.max_value[ci], (1 << 16) - 1)
-
-    # columnar staging: u64 columns upload RAW (8 B/value), degraded bigint
-    # columns upload 32-byte canonical rows; both convert
-    # canonical->Montgomery on the device (one mul by R^2)
+    # 2. witness synthesis per proof (the advice blinds drawn proof by
+    # proof), then every proof's advice commitments in one batch
     def col_to_dev(c):
+        # columnar staging: u64 columns upload RAW (8 B/value), degraded
+        # bigint columns upload 32-byte canonical rows; both convert
+        # canonical->Montgomery on the device (one mul by R^2)
         if isinstance(c, np.ndarray):
             return F.encode_u64_dev(c[None])[:, 0, :]
         blob = b"".join(int(v).to_bytes(32, "little") for v in c)
         return F.encode_le_bytes_dev(blob, n)
 
-    if witness.advice and all(isinstance(c, np.ndarray)
-                              for c in witness.advice):
-        advice_lagrange = F.encode_u64_dev(np.stack(witness.advice))
-    elif witness.advice:
-        advice_lagrange = torch.stack(
-            [col_to_dev(c) for c in witness.advice], dim=1)
-    else:
-        advice_lagrange = F.zeros((0, n))
-    # bounded-window commit bound from the running max (no O(n) host
-    # bit-length pass; prover.rs:237-254)
-    col_bits = [max(witness.max_value[i].bit_length(), 1)
-                for i in range(cs.num_advice_columns)]
+    advice_lagrange, advice_bits = [], []
+    for p_i in proofs:
+        if witness_advice is not None:
+            # the blinding rows and bounds of the synthesis path below, so
+            # that a proof from a witness file has create_proof's bytes
+            # (the reference's loaded-witness path blinds named advice too)
+            lag, col_bits = witness_advice[p_i]
+            lag = lag.clone()
+            for ci in range(n_adv):
+                if ci in cs.named_advices:
+                    advice_bits.append(col_bits[ci])
+                    continue
+                lag[:, ci, usable_rows:] = F.encode(
+                    [rng.randrange(1 << 16) for _ in range(usable_rows, n)])
+                advice_bits.append(max(col_bits[ci], 16))
+            advice_lagrange.append(lag)
+            continue
+        witness = _synthesize(pk, circuits[p_i], instance_cols[p_i],
+                              floor_planner)
+        # u16 blinding rows (prover.rs:283-290); named advice exempt
+        for ci, col in enumerate(witness.advice):
+            if ci in cs.named_advices:
+                continue
+            for r in range(usable_rows, n):
+                col[r] = rng.randrange(1 << 16)
+            witness.max_value[ci] = max(witness.max_value[ci], (1 << 16) - 1)
+        if witness.advice and all(isinstance(c, np.ndarray)
+                                  for c in witness.advice):
+            advice_lagrange.append(F.encode_u64_dev(np.stack(witness.advice)))
+        elif witness.advice:
+            advice_lagrange.append(torch.stack(
+                [col_to_dev(c) for c in witness.advice], dim=1))
+        else:
+            advice_lagrange.append(F.zeros((0, n)))
+        # bounded-window commit bound from the running max (no O(n) host
+        # bit-length pass; prover.rs:237-254)
+        advice_bits += [max(v.bit_length(), 1) for v in witness.max_value]
+        del witness
     for pt in params.commit_many_affine(
-            [advice_lagrange[:, i, :] for i in range(cs.num_advice_columns)],
-            [_quantize_max_bits(b) for b in col_bits], base="lagrange"):
+            [lag[:, i, :] for lag in advice_lagrange for i in range(n_adv)],
+            [_quantize_max_bits(b) for b in advice_bits], base="lagrange"):
         transcript.write_point(pt)
 
     _pm("advice synth+commit")
-    # 3. theta; lookup compression + m(X) commitments
+    # 3. theta; per proof, lookup compression + m(X) (m tails drawn proof
+    # by proof), then every m commitment in one batch
     theta = transcript.squeeze_challenge()
     theta_l = F.encode_scalar(theta)
-    lag_ctx = ExprCtx(advice_lagrange, pk.fixed_lagrange, instance_lagrange,
-                      rot_scale=1, length=n)
-    lookup_data = []
+    lag_ctxs = [ExprCtx(advice_lagrange[p_i], pk.fixed_lagrange,
+                        instance_lagrange[p_i], rot_scale=1, length=n)
+                for p_i in proofs]
+    lookup_data = [[] for _ in proofs]
     m_bits = []
-    for lookup in cs.lookups:
-        table, input_sets = logup_prover.compress(lookup, lag_ctx, theta_l)
-        m_lag, bits = logup_prover.multiplicities(
-            table, [c for s in input_sets for c in s], usable_rows, rng)
-        lookup_data.append((table, input_sets, m_lag))
-        m_bits.append(bits)
+    for p_i in proofs:
+        for lookup in cs.lookups:
+            table, input_sets = logup_prover.compress(lookup, lag_ctxs[p_i],
+                                                      theta_l)
+            m_lag, bits = logup_prover.multiplicities(
+                table, [c for s in input_sets for c in s], usable_rows, rng)
+            lookup_data[p_i].append((table, input_sets, m_lag))
+            m_bits.append(bits)
     for pt in params.commit_many_affine(
-            [m for _, _, m in lookup_data], [m_commit_bits(b) for b in m_bits],
-            base="lagrange"):
+            [m_ for data in lookup_data for _, _, m_ in data],
+            [m_commit_bits(b) for b in m_bits], base="lagrange"):
         transcript.write_point(pt)
 
     _pm("lookup compress+m")
     # 4. shuffle compression; beta, gamma
-    shuffle_data = [shuffle_prover.compress(group, lag_ctx, theta_l)
-                    for group in cs.shuffles]
+    shuffle_data = [[shuffle_prover.compress(group, lag_ctxs[p_i], theta_l)
+                     for group in cs.shuffles] for p_i in proofs]
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
     _pm("shuffle compress")
-    # 5. permutation z commits, then lookup zs, then shuffle zs
-    def value_col(column):
-        if column.ctype == "advice":
-            return advice_lagrange[:, column.index, :]
-        if column.ctype == "fixed":
-            return pk.fixed_lagrange[:, column.index, :]
-        return instance_lagrange[:, column.index, :]
+    # 5. permutation z commits proof by proof, then every proof's lookup
+    # zs, then every proof's shuffle zs (the blinds in that order); the
+    # argument zs in one batched commitment
+    perm_zs = []
+    for p_i in proofs:
+        def value_col(column, p_i=p_i):
+            if column.ctype == "advice":
+                return advice_lagrange[p_i][:, column.index, :]
+            if column.ctype == "fixed":
+                return pk.fixed_lagrange[:, column.index, :]
+            return instance_lagrange[p_i][:, column.index, :]
 
-    perm_zs, z_commitments = perm_mod.commit_z_polys(
-        params, domain, cs, pk.permutation_pk, value_col, beta, gamma, rng)
-    for com in z_commitments:
-        transcript.write_point(com)
-    lookup_zs = [logup_prover.commit_zs(domain, cs, table, input_sets, m_lag,
-                                        beta, rng)
-                 for table, input_sets, m_lag in lookup_data]
-    shuffle_zs = [shuffle_prover.commit_product(domain, cs, inputs, shuffles,
-                                                beta, rng)
-                  for inputs, shuffles in shuffle_data]
-    arg_zs = [z for zset in lookup_zs for z in zset] + shuffle_zs
-    for com in params.commit_many_affine(arg_zs, base="lagrange"):
+        zs, z_commitments = perm_mod.commit_z_polys(
+            params, domain, cs, pk.permutation_pk, value_col, beta, gamma,
+            rng)
+        for com in z_commitments:
+            transcript.write_point(com)
+        perm_zs.append(zs)
+    lookup_zs = [[logup_prover.commit_zs(domain, cs, table, input_sets,
+                                         m_lag, beta, rng)
+                  for table, input_sets, m_lag in lookup_data[p_i]]
+                 for p_i in proofs]
+    shuffle_zs = [[shuffle_prover.commit_product(domain, cs, inputs,
+                                                 shuffles, beta, rng)
+                   for inputs, shuffles in shuffle_data[p_i]]
+                  for p_i in proofs]
+    lookup_zs_flat = [[z for zset in lzs for z in zset] for lzs in lookup_zs]
+    for com in params.commit_many_affine(
+            [z for zs in lookup_zs_flat for z in zs]
+            + [z for zs in shuffle_zs for z in zs], base="lagrange"):
         transcript.write_point(com)
     # the compressed Lagrange forms die here
-    lookup_ms = [m for _, _, m in lookup_data]
-    del lag_ctx, lookup_data, shuffle_data, arg_zs
+    lookup_ms = [[m_ for _, _, m_ in data] for data in lookup_data]
+    del lag_ctxs, lookup_data, shuffle_data
 
     _pm("grand products/sums")
     # 6. vanishing random poly -> y
@@ -362,32 +474,46 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     y = transcript.squeeze_challenge()
 
     _pm("vanishing commit")
-    # 7. coeff forms: every column of one kind in one batched iNTT
-    def to_coeff(cols):
-        return domain.ntt.inverse(torch.stack(cols, dim=1)) if cols \
-            else F.zeros((0, n))
+    # 7. coeff forms: every column of one kind, of every proof, in one
+    # batched iNTT
+    def to_coeff(per_proof):
+        """per proof a (16, C_i, n) stack -> per proof its coeff form."""
+        counts = [t.shape[1] for t in per_proof]
+        if not sum(counts):
+            return per_proof
+        return _split(domain.ntt.inverse(_cat(per_proof)), counts)
 
-    advice_coeff = (domain.ntt.inverse(advice_lagrange)
-                    if cs.num_advice_columns else advice_lagrange)
-    instance_coeff = (domain.ntt.inverse(instance_lagrange)
-                      if cs.num_instance_columns else instance_lagrange)
-    perm_z_stack = to_coeff(perm_zs)
-    lookup_m_stack = to_coeff(lookup_ms)
-    lookup_z_stack = to_coeff([z for zset in lookup_zs for z in zset])
-    shuffle_z_stack = to_coeff(shuffle_zs)
-    flat_lz = iter(lookup_z_stack.unbind(1))
-    lookup_z_coeffs = [[next(flat_lz) for _ in zset] for zset in lookup_zs]
+    def stacks(per_proof_lists):
+        return [torch.stack(cols, dim=1) if cols else F.zeros((0, n))
+                for cols in per_proof_lists]
+
+    advice_coeff = to_coeff(advice_lagrange)
+    instance_coeff = to_coeff(instance_lagrange)
+    perm_z_stack = to_coeff(stacks(perm_zs))
+    lookup_m_stack = to_coeff(stacks(lookup_ms))
+    lookup_z_stack = to_coeff(stacks(lookup_zs_flat))
+    shuffle_z_stack = to_coeff(stacks(shuffle_zs))
+    sets_of = [[len(zset) for zset in lzs] for lzs in lookup_zs]
     del advice_lagrange, instance_lagrange, perm_zs, lookup_ms, lookup_zs
-    del shuffle_zs
-    perm_z_coeffs = list(perm_z_stack.unbind(1))
-    lookup_m_coeffs = list(lookup_m_stack.unbind(1))
-    shuffle_z_coeffs = list(shuffle_z_stack.unbind(1))
+    del lookup_zs_flat, shuffle_zs
+    perm_z_coeffs = [list(s.unbind(1)) for s in perm_z_stack]
+    lookup_m_coeffs = [list(s.unbind(1)) for s in lookup_m_stack]
+    shuffle_z_coeffs = [list(s.unbind(1)) for s in shuffle_z_stack]
+    lookup_z_coeffs = []
+    for p_i in proofs:
+        flat_lz = iter(lookup_z_stack[p_i].unbind(1))
+        lookup_z_coeffs.append([[next(flat_lz) for _ in range(c)]
+                                for c in sets_of[p_i]])
 
     _pm("iNTTs")
-    # 8. h evaluation
-    h_ext = pk.ev.evaluate_h(
-        advice_coeff, instance_coeff, perm_z_stack, lookup_m_stack,
-        lookup_z_stack, shuffle_z_stack, theta, beta, gamma, y)
+    # 8. h evaluation, the fold chained across proofs
+    # (evaluation.rs:900-1000)
+    h_ext = None
+    for p_i in proofs:
+        h_ext = pk.ev.evaluate_h(
+            advice_coeff[p_i], instance_coeff[p_i], perm_z_stack[p_i],
+            lookup_m_stack[p_i], lookup_z_stack[p_i], shuffle_z_stack[p_i],
+            theta, beta, gamma, y, value_init=h_ext)
 
     _pm("evaluate_h")
     # 9. vanishing construct -> x
@@ -399,6 +525,13 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
     xn = pow(x, n, P)
 
     _pm("h split+commit")
+    # every column sliced once, so that one commitment is one object in the
+    # queries (SHPLONK groups its queries by object identity)
+    instance_polys = [list(s.unbind(1)) for s in instance_coeff]
+    advice_polys = [list(s.unbind(1)) for s in advice_coeff]
+    fixed_polys = list(pk.fixed_coeff.unbind(1))
+    sigma_polys = list(pk.permutation_pk.sigmas_coeff.unbind(1))
+    h_poly = vanishing.fold_h(h_pieces, xn)
     # 10. evals (verifier read order, verifier.rs:246-290), batched:
     # all polys sharing an evaluation point go through ONE device dot
     x_next = domain.rotate_omega(x, 1)
@@ -413,25 +546,27 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
         return out
 
     plan = []  # (poly, point) in exact transcript write order
-    for column, rot in cs.instance_queries:
-        plan.append((instance_coeff[:, column.index, :],
-                     domain.rotate_omega(x, rot)))
-    for column, rot in cs.advice_queries:
-        plan.append((advice_coeff[:, column.index, :],
-                     domain.rotate_omega(x, rot)))
+    for p_i in proofs:
+        for column, rot in cs.instance_queries:
+            plan.append((instance_polys[p_i][column.index],
+                         domain.rotate_omega(x, rot)))
+    for p_i in proofs:
+        for column, rot in cs.advice_queries:
+            plan.append((advice_polys[p_i][column.index],
+                         domain.rotate_omega(x, rot)))
     for column, rot in cs.fixed_queries:
-        plan.append((pk.fixed_coeff[:, column.index, :],
-                     domain.rotate_omega(x, rot)))
-    h_poly = vanishing.fold_h(h_pieces, xn)
+        plan.append((fixed_polys[column.index], domain.rotate_omega(x, rot)))
     plan.append((vanishing.random_poly, x))
-    for i in range(m):
-        plan.append((pk.permutation_pk.sigmas_coeff[:, i, :], x))
-    plan += z_chain_plan(perm_z_coeffs)
-    for m_coeff, zcs in zip(lookup_m_coeffs, lookup_z_coeffs):
-        plan.append((m_coeff, x))
-        plan += z_chain_plan(zcs)
-    for zc in shuffle_z_coeffs:
-        plan += [(zc, x), (zc, x_next)]
+    plan += [(sigma, x) for sigma in sigma_polys]
+    for p_i in proofs:
+        plan += z_chain_plan(perm_z_coeffs[p_i])
+    for p_i in proofs:
+        for m_coeff, zcs in zip(lookup_m_coeffs[p_i], lookup_z_coeffs[p_i]):
+            plan.append((m_coeff, x))
+            plan += z_chain_plan(zcs)
+    for p_i in proofs:
+        for zc in shuffle_z_coeffs[p_i]:
+            plan += [(zc, x), (zc, x_next)]
     by_point = {}
     for i, (_, pt) in enumerate(plan):
         by_point.setdefault(pt, []).append(i)
@@ -444,7 +579,7 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
         transcript.write_scalar(v)
 
     _pm("evals")
-    # 11. multiopen queries (prover.rs:792-846: the proof's own sections,
+    # 11. multiopen queries (prover.rs:792-846: the proofs' own sections,
     # then fixed / permutation-common / vanishing)
     def z_chain_queries(zcs):
         out = []
@@ -455,28 +590,27 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
         return out
 
     queries = []
-    for column, rot in cs.instance_queries:
-        queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
-                                   instance_coeff[:, column.index, :]))
-    for column, rot in cs.advice_queries:
-        queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
-                                   advice_coeff[:, column.index, :]))
-    queries += z_chain_queries(perm_z_coeffs)
-    for m_coeff, zcs in zip(lookup_m_coeffs, lookup_z_coeffs):
-        queries.append(ProverQuery(x, 0, m_coeff))
-        queries += z_chain_queries(zcs)
-    for zc in shuffle_z_coeffs:
-        queries += [ProverQuery(x, 0, zc), ProverQuery(x_next, 1, zc)]
+    for p_i in proofs:
+        for column, rot in cs.instance_queries:
+            queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
+                                       instance_polys[p_i][column.index]))
+        for column, rot in cs.advice_queries:
+            queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
+                                       advice_polys[p_i][column.index]))
+        queries += z_chain_queries(perm_z_coeffs[p_i])
+        for m_coeff, zcs in zip(lookup_m_coeffs[p_i], lookup_z_coeffs[p_i]):
+            queries.append(ProverQuery(x, 0, m_coeff))
+            queries += z_chain_queries(zcs)
+        for zc in shuffle_z_coeffs[p_i]:
+            queries += [ProverQuery(x, 0, zc), ProverQuery(x_next, 1, zc)]
     for column, rot in cs.fixed_queries:
         queries.append(ProverQuery(domain.rotate_omega(x, rot), rot,
-                                   pk.fixed_coeff[:, column.index, :]))
-    for i in range(m):
-        queries.append(ProverQuery(
-            x, 0, pk.permutation_pk.sigmas_coeff[:, i, :]))
+                                   fixed_polys[column.index]))
+    queries += [ProverQuery(x, 0, sigma) for sigma in sigma_polys]
     queries.append(ProverQuery(x, 0, h_poly))
     queries.append(ProverQuery(x, 0, vanishing.random_poly))
 
-    gwc.create_proof(params, transcript, queries)
+    (gwc if use_gwc else shplonk).create_proof(params, transcript, queries)
     _pm("multiopen")
     return transcript.finalize()
 

@@ -1,9 +1,10 @@
-"""The verifier — verify_proof.
+"""The verifier — verify_proof / verify_proof_multi.
 
 Host-side mirror of halo2_proofs/src/plonk/verifier.rs:128-473
-(verify_proof_ext): read the transcript in the prover's exact order,
-recompute the folded constraint value at x, assemble the verifier query
-stream, run the GWC PairMSM and the final pairing Decider.  All math is
+(verify_proof_ext): read the transcript in the prover's exact order (one
+or several instances of one circuit), recompute the folded constraint
+value at x, assemble the verifier query stream, run the GWC or SHPLONK
+PairMSM and the final pairing Decider.  All math is
 host big-int — the verifier is cheap by design and never touches the
 device.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.multiopen import HostMSM, VerifierQuery, decider_verify
-from halo2_tpu_torch.multiopen import gwc
+from halo2_tpu_torch.multiopen import gwc, shplonk
 from halo2_tpu_torch.plonk import permutation as perm_mod
 from halo2_tpu_torch.plonk.circuit import eval_expression_host
 from halo2_tpu_torch.transcript import Blake2bRead
@@ -24,67 +25,85 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
                  use_gwc: bool = True, strategy=None):
     """Verify a single-instance proof.  strategy=None: immediate pairing
     (SingleVerifier); strategy=BatchVerifier: accumulate, finalize later."""
-    if not use_gwc:
-        raise NotImplementedError(
-            "the SHPLONK multiopen is not ported to halo2_tpu_torch yet")
+    return verify_proof_multi(params_verifier, vk, [instances], proof,
+                              use_gwc=use_gwc, strategy=strategy)
+
+
+def verify_proof_multi(params_verifier, vk, instances_list, proof: bytes,
+                       use_gwc: bool = True, strategy=None):
+    """Verify a proof of several instances of one circuit
+    (create_proof_multi); use_gwc False reads a SHPLONK opening."""
     cs = vk.cs
     domain = vk.domain
     n = params_verifier.n
     bf = cs.blinding_factors()
     transcript = Blake2bRead(proof)
+    proofs = range(len(instances_list))
 
-    if len(instances) != cs.num_instance_columns:
-        raise ValueError("wrong number of instance columns")
-    for col in instances:
-        if len(col) > n - (bf + 1):
-            raise ValueError("instance too large")
+    for instances in instances_list:
+        if len(instances) != cs.num_instance_columns:
+            raise ValueError("wrong number of instance columns")
+        for col in instances:
+            if len(col) > n - (bf + 1):
+                raise ValueError("instance too large")
 
-    instance_commitments = [params_verifier.commit_lagrange(list(col))
-                            for col in instances]
+    instance_commitments = [
+        [params_verifier.commit_lagrange(list(col)) for col in instances]
+        for instances in instances_list]
 
     vk.hash_into(transcript)
-    for com in instance_commitments:
-        transcript.common_point(com)
+    for coms in instance_commitments:
+        for com in coms:
+            transcript.common_point(com)
 
-    advice_commitments = [transcript.read_point()
-                          for _ in range(cs.num_advice_columns)]
+    advice_commitments = [[transcript.read_point()
+                           for _ in range(cs.num_advice_columns)]
+                          for _ in proofs]
     theta = transcript.squeeze_challenge()
-    lookup_m_commitments = [transcript.read_point() for _ in cs.lookups]
+    lookup_m_commitments = [[transcript.read_point() for _ in cs.lookups]
+                            for _ in proofs]
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
-    perm_z_commitments = perm_mod.read_product_commitments(cs, transcript)
+    perm_z_commitments = [perm_mod.read_product_commitments(cs, transcript)
+                          for _ in proofs]
     lookup_z_commitments = [
-        [transcript.read_point() for _ in lookup.input_expressions_sets]
-        for lookup in cs.lookups]
-    shuffle_z_commitments = [transcript.read_point() for _ in cs.shuffles]
+        [[transcript.read_point() for _ in lookup.input_expressions_sets]
+         for lookup in cs.lookups] for _ in proofs]
+    shuffle_z_commitments = [[transcript.read_point() for _ in cs.shuffles]
+                             for _ in proofs]
     random_commitment = transcript.read_point()
     y = transcript.squeeze_challenge()
     h_commitments = [transcript.read_point()
                      for _ in range(domain.get_quotient_poly_degree())]
     x = transcript.squeeze_challenge()
 
-    instance_evals = [transcript.read_scalar() for _ in cs.instance_queries]
-    advice_evals = [transcript.read_scalar() for _ in cs.advice_queries]
+    instance_evals = [[transcript.read_scalar() for _ in cs.instance_queries]
+                      for _ in proofs]
+    advice_evals = [[transcript.read_scalar() for _ in cs.advice_queries]
+                    for _ in proofs]
     fixed_evals = [transcript.read_scalar() for _ in cs.fixed_queries]
     random_eval = transcript.read_scalar()
     perm_common_evals = [transcript.read_scalar()
                          for _ in cs.permutation.columns]
-    perm_sets = perm_mod.read_set_evals(cs, len(perm_z_commitments),
-                                        transcript)
-    lookup_evals = []      # per lookup: (m_eval, [(z_x, z_wx, z_last)])
-    for lookup in cs.lookups:
-        m_eval = transcript.read_scalar()
-        zsets = []
-        ns = len(lookup.input_expressions_sets)
-        for i in range(ns):
-            z_x = transcript.read_scalar()
-            z_wx = transcript.read_scalar()
-            z_last = transcript.read_scalar() if i + 1 < ns else None
-            zsets.append((z_x, z_wx, z_last))
-        lookup_evals.append((m_eval, zsets))
-    shuffle_evals = [(transcript.read_scalar(), transcript.read_scalar())
-                     for _ in cs.shuffles]
+    perm_sets = [perm_mod.read_set_evals(cs, len(perm_z_commitments[p]),
+                                         transcript) for p in proofs]
+    lookup_evals = []      # per proof, per lookup: (m_eval, [(z_x, z_wx,
+    for _ in proofs:       # z_last)])
+        per_proof = []
+        for lookup in cs.lookups:
+            m_eval = transcript.read_scalar()
+            zsets = []
+            ns = len(lookup.input_expressions_sets)
+            for i in range(ns):
+                z_x = transcript.read_scalar()
+                z_wx = transcript.read_scalar()
+                z_last = transcript.read_scalar() if i + 1 < ns else None
+                zsets.append((z_x, z_wx, z_last))
+            per_proof.append((m_eval, zsets))
+        lookup_evals.append(per_proof)
+    shuffle_evals = [[(transcript.read_scalar(), transcript.read_scalar())
+                      for _ in cs.shuffles] for _ in proofs]
 
     # ---- expected h(x) ----------------------------------------------------
     xn = pow(x, n, P)
@@ -94,6 +113,81 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
     l_0 = l_evals[1 + bf]
     active_rows = (1 - (l_last + l_blind)) % P
 
+    expressions = []
+    for p in proofs:
+        expressions += _proof_expressions(
+            cs, advice_evals[p], instance_evals[p], fixed_evals, perm_sets[p],
+            perm_common_evals, lookup_evals[p], shuffle_evals[p], theta,
+            beta, gamma, x, l_0, l_last, l_blind, active_rows)
+
+    h_eval = 0
+    for v in expressions:
+        h_eval = (h_eval * y + v) % P
+    expected_h_eval = h_eval * pow((xn - 1) % P, P - 2, P) % P
+
+    h_msm = HostMSM()
+    for com in reversed(h_commitments):
+        h_msm.scale(xn)
+        h_msm.append_term(1, com)
+
+    # ---- query stream (verifier.rs:386-460 order) ------------------------
+    x_next = domain.rotate_omega(x, 1)
+    x_last = domain.rotate_omega(x, -(bf + 1))
+    queries = []
+    for p in proofs:
+        for qi, (column, rot) in enumerate(cs.instance_queries):
+            queries.append(VerifierQuery(
+                domain.rotate_omega(x, rot), rot,
+                instance_commitments[p][column.index], instance_evals[p][qi]))
+        for qi, (column, rot) in enumerate(cs.advice_queries):
+            queries.append(VerifierQuery(
+                domain.rotate_omega(x, rot), rot,
+                advice_commitments[p][column.index], advice_evals[p][qi]))
+        zcoms = perm_z_commitments[p]
+        for i, s in enumerate(perm_sets[p]):
+            queries.append(VerifierQuery(x, 0, zcoms[i], s.z_x))
+            queries.append(VerifierQuery(x_next, 1, zcoms[i], s.z_wx))
+        for i in range(len(perm_sets[p]) - 2, -1, -1):
+            queries.append(VerifierQuery(x_last, -(bf + 1), zcoms[i],
+                                         perm_sets[p][i].z_last))
+        for li, (m_eval, zsets) in enumerate(lookup_evals[p]):
+            zcoms = lookup_z_commitments[p][li]
+            queries.append(VerifierQuery(x, 0, lookup_m_commitments[p][li],
+                                         m_eval))
+            for zi, (z_x, z_wx, _) in enumerate(zsets):
+                queries.append(VerifierQuery(x, 0, zcoms[zi], z_x))
+                queries.append(VerifierQuery(x_next, 1, zcoms[zi], z_wx))
+            for zi in range(len(zsets) - 2, -1, -1):
+                queries.append(VerifierQuery(x_last, -(bf + 1), zcoms[zi],
+                                             zsets[zi][2]))
+        for gi, (z_x, z_wx) in enumerate(shuffle_evals[p]):
+            com = shuffle_z_commitments[p][gi]
+            queries.append(VerifierQuery(x, 0, com, z_x))
+            queries.append(VerifierQuery(x_next, 1, com, z_wx))
+    for qi, (column, rot) in enumerate(cs.fixed_queries):
+        queries.append(VerifierQuery(domain.rotate_omega(x, rot), rot,
+                                     vk.fixed_commitments[column.index],
+                                     fixed_evals[qi]))
+    for i, com in enumerate(vk.permutation.commitments):
+        queries.append(VerifierQuery(x, 0, com, perm_common_evals[i]))
+    queries.append(VerifierQuery(x, 0, h_msm, expected_h_eval))
+    queries.append(VerifierQuery(x, 0, random_commitment, random_eval))
+
+    pair = (gwc if use_gwc else shplonk).verify_proof(params_verifier,
+                                                      transcript, queries)
+    transcript.assert_exhausted()
+    if strategy is not None:
+        strategy.add(pair)
+        return True
+    return decider_verify(params_verifier, pair)
+
+
+def _proof_expressions(cs, advice_evals, instance_evals, fixed_evals,
+                       perm_sets, perm_common_evals, lookup_evals,
+                       shuffle_evals, theta, beta, gamma, x, l_0, l_last,
+                       l_blind, active_rows) -> list:
+    """The constraint values at x of one proof's gates, permutation,
+    lookups and shuffles, in the prover's fold order."""
     def host_eval(e):
         return eval_expression_host(
             e,
@@ -163,64 +257,4 @@ def verify_proof(params_verifier, vk, instances, proof: bytes,
         expressions.append(l_last * ((z_x * z_x - z_x) % P) % P)
         expressions.append(
             (z_wx * prod_shuffle - z_x * prod_input) % P * active_rows % P)
-
-    h_eval = 0
-    for v in expressions:
-        h_eval = (h_eval * y + v) % P
-    expected_h_eval = h_eval * pow((xn - 1) % P, P - 2, P) % P
-
-    h_msm = HostMSM()
-    for com in reversed(h_commitments):
-        h_msm.scale(xn)
-        h_msm.append_term(1, com)
-
-    # ---- query stream (verifier.rs:386-460 order) ------------------------
-    x_next = domain.rotate_omega(x, 1)
-    x_last = domain.rotate_omega(x, -(bf + 1))
-    queries = []
-    for qi, (column, rot) in enumerate(cs.instance_queries):
-        queries.append(VerifierQuery(domain.rotate_omega(x, rot), rot,
-                                     instance_commitments[column.index],
-                                     instance_evals[qi]))
-    for qi, (column, rot) in enumerate(cs.advice_queries):
-        queries.append(VerifierQuery(domain.rotate_omega(x, rot), rot,
-                                     advice_commitments[column.index],
-                                     advice_evals[qi]))
-    for i, s in enumerate(perm_sets):
-        queries.append(VerifierQuery(x, 0, perm_z_commitments[i], s.z_x))
-        queries.append(VerifierQuery(x_next, 1, perm_z_commitments[i],
-                                     s.z_wx))
-    for i in range(len(perm_sets) - 2, -1, -1):
-        queries.append(VerifierQuery(x_last, -(bf + 1),
-                                     perm_z_commitments[i],
-                                     perm_sets[i].z_last))
-    for li, (m_eval, zsets) in enumerate(lookup_evals):
-        queries.append(VerifierQuery(x, 0, lookup_m_commitments[li], m_eval))
-        for zi, (z_x, z_wx, _) in enumerate(zsets):
-            queries.append(VerifierQuery(x, 0, lookup_z_commitments[li][zi],
-                                         z_x))
-            queries.append(VerifierQuery(x_next, 1,
-                                         lookup_z_commitments[li][zi], z_wx))
-        for zi in range(len(zsets) - 2, -1, -1):
-            queries.append(VerifierQuery(x_last, -(bf + 1),
-                                         lookup_z_commitments[li][zi],
-                                         zsets[zi][2]))
-    for gi, (z_x, z_wx) in enumerate(shuffle_evals):
-        queries.append(VerifierQuery(x, 0, shuffle_z_commitments[gi], z_x))
-        queries.append(VerifierQuery(x_next, 1, shuffle_z_commitments[gi],
-                                     z_wx))
-    for qi, (column, rot) in enumerate(cs.fixed_queries):
-        queries.append(VerifierQuery(domain.rotate_omega(x, rot), rot,
-                                     vk.fixed_commitments[column.index],
-                                     fixed_evals[qi]))
-    for i, com in enumerate(vk.permutation.commitments):
-        queries.append(VerifierQuery(x, 0, com, perm_common_evals[i]))
-    queries.append(VerifierQuery(x, 0, h_msm, expected_h_eval))
-    queries.append(VerifierQuery(x, 0, random_commitment, random_eval))
-
-    pair = gwc.verify_proof(params_verifier, transcript, queries)
-    transcript.assert_exhausted()
-    if strategy is not None:
-        strategy.add(pair)
-        return True
-    return decider_verify(params_verifier, pair)
+    return expressions

@@ -26,7 +26,7 @@ from halo2_tpu_torch.fields.limbs import N_LIMBS, ints_to_limbs_np, to_tensor
 from halo2_tpu_torch.msm.msm import msm_many
 from halo2_tpu_torch.ntt.ntt import get_ntt
 from halo2_tpu_torch.pairing import bn254 as pairing
-from halo2_tpu_torch.transcript.blake2b import point_from_bytes, point_to_bytes
+from halo2_tpu_torch.transcript.blake2b import point_to_bytes
 from halo2_tpu_torch.utils.device import require_device
 
 Q = pairing.Q
@@ -183,12 +183,11 @@ class Params:
         device = require_device(device)
         k = int.from_bytes(fh.read(4), "little")
         n = 1 << k
-        g_pts = [point_from_bytes(fh.read(32)) for _ in range(n)]
-        gl_pts = [point_from_bytes(fh.read(32)) for _ in range(n)]
+        g = g1.points_from_bytes(fh.read(32 * n), device)
+        g_lagrange = g1.points_from_bytes(fh.read(32 * n), device)
         extra_len = int.from_bytes(fh.read(4), "little")
         s_g2 = g2_from_bytes(fh.read(extra_len))
-        return cls(k, g1.encode_points(g_pts, device),
-                   g1.encode_points(gl_pts, device), s_g2)
+        return cls(k, g, g_lagrange, s_g2)
 
 
 class ParamsVerifier:

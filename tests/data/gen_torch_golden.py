@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Generate tests/data/torch_golden_proof.json,
-tests/data/torch_golden_horner.json, tests/data/torch_golden_scan.json and
-tests/data/torch_golden_args.json from the JAX package.
+tests/data/torch_golden_horner.json, tests/data/torch_golden_scan.json,
+tests/data/torch_golden_args.json and tests/data/torch_golden_multi.json
+from the JAX package.
 
-    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py
+    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py [multi]
 
 Proves `tests/test_e2e.py`'s SimpleCircuit (K = 4, Params.unsafe_setup
 seed 7, a = 3, b = 5) with halo2_tpu for the prover seeds 0 and 1 and
@@ -40,6 +41,19 @@ tests/test_plonk_api.py's pinned vk (keygen only); and module vectors of
 repeated entries, `multiplicities` + `commit_zs` over two input sets) and
 `shuffle_prover.commit_product` over two units, at n = 32, as canonical
 integers (tests/test_torch_args.py, tests/test_torch_args_prover.py).
+
+The fifth (`multi` writes it alone, about 24 min) holds the multi-instance
+and SHPLONK proofs with their pinned vks: the two-instance GWC proof of
+tests/test_e2e.py::test_multi_instance_proof (seed 11), the SHPLONK
+proofs of tests/test_shplonk.py (SimpleCircuit seed 0,
+LookupShuffleCircuit seed 3) and of a lookup_any circuit, and the
+two-instance GWC and SHPLONK proofs of tests/test_plonk_api.py (seed 0);
+the bytes of the JAX package's params, vk and witness files and the
+arrays of its circuit-data file for SimpleCircuit at K = 4, with the proof
+from that witness file (seed 5); and `shplonk._construct_intermediate_sets`
+on a recorded query list (tests/test_torch_multi.py,
+tests/test_torch_shplonk.py, tests/test_torch_io.py).  Each part runs in a
+process of its own.
 """
 
 import functools
@@ -59,6 +73,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 sys.path.insert(0, ROOT)
 
 import tests.conftest  # noqa: E402,F401  (the test suite's JAX settings)
+from halo2_tpu.plonk import Circuit  # noqa: E402
 from halo2_tpu.plonk.keygen import keygen  # noqa: E402
 from halo2_tpu.plonk.prover import create_proof  # noqa: E402
 from halo2_tpu.poly.commitment import Params  # noqa: E402
@@ -403,6 +418,253 @@ def args_golden() -> dict:
             "logup": logup_golden(), "shuffle": shuffle_golden()}
 
 
+# the multi-circuit / SHPLONK / file records (torch_golden_multi.json)
+MULTI_SEED = 11          # tests/test_e2e.py::test_multi_instance_proof
+MULTI_AB = ((3, 5), (2, 9))
+PLONK_API_PARAMS_SEED, PLONK_API_SEED = 42, 0
+WITNESS_AB, WITNESS_SEED = (4, 9), 5     # tests/test_serialization.py
+SETS_SEED = 13
+
+
+def _proof_record(circuit, k, params_seed, prover_seed, instances, use_gwc,
+                  proof, vk) -> dict:
+    return {"circuit": circuit, "k": k, "params_seed": params_seed,
+            "prover_seed": prover_seed, "instances": instances,
+            "use_gwc": use_gwc, "pinned_vk": vk.pinned(),
+            "proof_hex": proof.hex()}
+
+
+class LookupAnyCircuit(Circuit):
+    """One advice column looked up in one fixed column (`lookup_any`), as
+    halo2_tpu_torch.circuits.LookupAnyCircuit: the fixed column holds
+    TABLE, the advice column `values`."""
+
+    TABLE = [0, 1, 2, 3, 4, 5, 6, 7]
+    VALUES = [3, 1, 4, 1, 5, 7, 2, 6]
+
+    def __init__(self, values=None):
+        self.values = values
+
+    def without_witnesses(self):
+        return LookupAnyCircuit()
+
+    def configure(self, meta):
+        a = meta.advice_column()
+        t = meta.fixed_column()
+        meta.lookup_any("in_table", lambda m: [(m.query_advice(a, 0),
+                                                m.query_fixed(t, 0))])
+        return a, t
+
+    def synthesize(self, config, layouter):
+        a, t = config
+        values = self.values or [None] * len(self.VALUES)
+
+        def fn(region):
+            for row, v in enumerate(self.TABLE):
+                region.assign_fixed("t", t, row, v)
+            for row, v in enumerate(values):
+                region.assign_advice("a", a, row, v)
+        layouter.assign_region("lookup_any", fn)
+
+
+def _simple_key():
+    params = Params.unsafe_setup(K, seed=PARAMS_SEED)
+    return (params,) + keygen(params, SimpleCircuit())
+
+
+def _e2e_multi_gwc() -> dict:
+    """tests/test_e2e.py::test_multi_instance_proof."""
+    from halo2_tpu.plonk.prover import create_proof_multi
+    params, vk, pk = _simple_key()
+    insts = [[[expected_out(a, b)]] for a, b in MULTI_AB]
+    proof = create_proof_multi(params, pk, [SimpleCircuit(a, b)
+                                            for a, b in MULTI_AB],
+                               insts, seed=MULTI_SEED)
+    return dict(_proof_record("tests/test_e2e.py::SimpleCircuit", K,
+                              PARAMS_SEED, MULTI_SEED, insts, True, proof,
+                              vk), witnesses=[list(ab) for ab in MULTI_AB])
+
+
+def _simple_shplonk() -> dict:
+    """tests/test_shplonk.py::test_shplonk_prove_verify."""
+    from halo2_tpu.plonk.prover import create_proof_multi
+    params, vk, pk = _simple_key()
+    inst = [[[expected_out(A, B)]]]
+    proof = create_proof_multi(params, pk, [SimpleCircuit(A, B)], inst,
+                               seed=0, use_gwc=False)
+    return dict(_proof_record("tests/test_e2e.py::SimpleCircuit", K,
+                              PARAMS_SEED, 0, inst, False, proof, vk),
+                witnesses=[[A, B]])
+
+
+def _lookup_any_shplonk() -> dict:
+    from halo2_tpu.plonk.prover import create_proof_multi
+    params = Params.unsafe_setup(K, seed=PARAMS_SEED)
+    vk, pk = keygen(params, LookupAnyCircuit())
+    proof = create_proof_multi(params, pk,
+                               [LookupAnyCircuit(LookupAnyCircuit.VALUES)],
+                               [[]], seed=0, use_gwc=False)
+    return _proof_record("tests/data/gen_torch_golden.py::LookupAnyCircuit",
+                         K, PARAMS_SEED, 0, [[]], False, proof, vk)
+
+
+def _lookup_shuffle_shplonk() -> dict:
+    """tests/test_shplonk.py::test_shplonk_with_lookups_shuffles."""
+    from halo2_tpu.plonk.prover import create_proof_multi
+    _, k, params_seed, seed = ARGS_CIRCUITS["lookup_shuffle"]
+    empty, full, _, _ = args_circuit("lookup_shuffle")
+    params = Params.unsafe_setup(k, seed=params_seed)
+    vk, pk = keygen(params, empty)
+    proof = create_proof_multi(params, pk, [full], [[]], seed=seed,
+                               use_gwc=False)
+    return _proof_record(
+        "tests/test_lookup_shuffle.py::LookupShuffleCircuit", k, params_seed,
+        seed, [[]], False, proof, vk)
+
+
+def _plonk_api_multi(use_gwc: bool) -> dict:
+    """tests/test_plonk_api.py: test_proof_gwc_single_and_batch and
+    test_proof_shplonk (two instances, seed 0)."""
+    from halo2_tpu.plonk.prover import create_proof_multi
+    from tests.test_plonk_api import INSTANCE, LOOKUP_TABLE, A_VALUE
+    from tests.test_plonk_api import K as PK, MyCircuit
+    params = Params.unsafe_setup(PK, seed=PLONK_API_PARAMS_SEED)
+    vk, pk = keygen(params, MyCircuit(None, LOOKUP_TABLE))
+    insts = [[[INSTANCE]], [[INSTANCE]]]
+    proof = create_proof_multi(
+        params, pk, [MyCircuit(A_VALUE, LOOKUP_TABLE) for _ in insts], insts,
+        seed=PLONK_API_SEED, use_gwc=use_gwc)
+    return _proof_record("tests/test_plonk_api.py::MyCircuit", PK,
+                         PLONK_API_PARAMS_SEED, PLONK_API_SEED, insts,
+                         use_gwc, proof, vk)
+
+
+def files_golden(tmp: str) -> dict:
+    """The bytes of the JAX package's params, vk and witness files and the
+    arrays of its circuit-data file, for SimpleCircuit at K = 4 (params seed
+    7), and the proof from the witness file (seed 5), which equals the
+    direct proof."""
+    from halo2_tpu.io import serialization as ser
+    from halo2_tpu.plonk.prover import (create_proof_from_witness,
+                                        create_witness)
+    params = Params.unsafe_setup(K, seed=PARAMS_SEED)
+    vk, pk = keygen(params, SimpleCircuit())
+    paths = {name: os.path.join(tmp, name)
+             for name in ("params.bin", "vk.bin", "witness.bin", "cd.npz")}
+    ser.save_params(params, paths["params.bin"])
+    ser.save_vk(vk, paths["vk.bin"])
+    a, b = WITNESS_AB
+    inst = [[expected_out(a, b)]]
+    create_witness(pk, SimpleCircuit(a, b), inst, paths["witness.bin"])
+    ser.save_circuit_data(pk, paths["cd.npz"])
+    proof = create_proof_from_witness(params, pk, inst, paths["witness.bin"],
+                                      seed=WITNESS_SEED)
+    direct = create_proof(params, pk, SimpleCircuit(a, b), inst,
+                          seed=WITNESS_SEED)
+    assert proof == direct
+    data = np.load(paths["cd.npz"])
+    arrays = {key: {"dtype": str(data[key].dtype),
+                    "shape": list(data[key].shape),
+                    "values": data[key].reshape(-1).tolist()}
+              for key in data.files}
+
+    def hex_of(name):
+        with open(paths[name], "rb") as fh:
+            return fh.read().hex()
+    return {"k": K, "params_seed": PARAMS_SEED, "witness": list(WITNESS_AB),
+            "instances": inst, "prover_seed": WITNESS_SEED,
+            "params_hex": hex_of("params.bin"), "vk_hex": hex_of("vk.bin"),
+            "witness_hex": hex_of("witness.bin"),
+            "circuit_data": arrays, "proof_hex": proof.hex()}
+
+
+class _Query:
+    """A query of the recorded list: its commitment is an object of its
+    own per label (two labels of equal value stay two objects)."""
+
+    def __init__(self, point, rotation, commitment):
+        self.point, self.rotation, self.commitment = point, rotation, \
+            commitment
+
+
+def sets_queries() -> list:
+    """(label, value, rotation) of a verifier-like query stream: an advice
+    column at two rotations, grand products at three, a column at -1, two
+    fixed commitments with the same value, h and the random poly."""
+    return [("instance", 1, 0), ("advice_a", 2, 0), ("advice_a", 2, 1),
+            ("advice_b", 3, 0), ("advice_c", 4, -1), ("perm_z0", 5, 0),
+            ("perm_z0", 5, 1), ("perm_z0", 5, -4), ("perm_z1", 6, 0),
+            ("perm_z1", 6, 1), ("fixed_0", 7, 0), ("fixed_1", 7, 0),
+            ("fixed_2", 8, -1), ("h", 9, 0), ("random", 10, 0)]
+
+
+def intermediate_sets_golden() -> dict:
+    """`shplonk._construct_intermediate_sets` on `sets_queries()` at random
+    points of each rotation."""
+    from halo2_tpu.fields.bn254 import Fr
+    from halo2_tpu.multiopen import shplonk
+    rng = np.random.default_rng(SETS_SEED)
+    rows = sets_queries()
+    points = {rot: int.from_bytes(rng.bytes(32), "little") % Fr.p
+              for rot in sorted({r for _, _, r in rows})}
+    objs = {}
+    for label, value, _ in rows:
+        objs.setdefault(label, ("point", value))   # equal values, own objects
+    queries = [_Query(points[r], r, objs[label]) for label, _, r in rows]
+    label_of = {id(o): label for label, o in objs.items()}
+    sets, super_points = shplonk._construct_intermediate_sets(queries)
+    return {"queries": [list(r) for r in rows],
+            "points": {str(r): p for r, p in points.items()},
+            "sets": [{"rotations": list(s["rotations"]),
+                      "points": s["points"],
+                      "commitments": [label_of[id(q.commitment)]
+                                      for q in s["queries"]]}
+                     for s in sets],
+            "super_point_set": super_points}
+
+
+def _files_part() -> dict:
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return files_golden(tmp)
+
+
+# the parts of torch_golden_multi.json: the JAX package's multi-instance
+# and SHPLONK proofs (one proof record each), its files, the intermediate
+# sets
+MULTI_PROOFS = {
+    "e2e_multi_gwc": _e2e_multi_gwc,
+    "simple_shplonk": _simple_shplonk,
+    "lookup_any_shplonk": _lookup_any_shplonk,
+    "lookup_shuffle_shplonk": _lookup_shuffle_shplonk,
+    "plonk_api_multi_gwc": lambda: _plonk_api_multi(True),
+    "plonk_api_multi_shplonk": lambda: _plonk_api_multi(False),
+}
+MULTI_PARTS = dict(MULTI_PROOFS, files=_files_part,
+                   intermediate_sets=intermediate_sets_golden)
+# parts whose programs crash XLA-CPU's persistent-cache read (the Tier-1
+# crash of test_shplonk_with_lookups_shuffles): compiled afresh
+NO_CACHE_PARTS = ("lookup_shuffle_shplonk",)
+
+
+def multi_golden() -> dict:
+    """Each part in a process of its own (one process holding every
+    program of these proofs ran XLA-CPU out of memory), merged."""
+    import subprocess
+    parts = {}
+    for name in MULTI_PARTS:
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "multi-part", name],
+            capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"part {name} failed:\n{done.stderr[-3000:]}")
+        parts[name] = json.loads(done.stdout.strip().splitlines()[-1])
+        print(f"{name}: done", file=sys.stderr, flush=True)
+    return {"proofs": {name: parts[name] for name in MULTI_PROOFS},
+            "files": parts["files"],
+            "intermediate_sets": parts["intermediate_sets"]}
+
+
 def _write(name: str, record: dict):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
     with open(path, "w") as fh:
@@ -410,7 +672,19 @@ def _write(name: str, record: dict):
         fh.write("\n")
 
 
-def main():
+def main(which=()):
+    """Writes every file; `multi` as the only argument writes
+    torch_golden_multi.json alone (`multi-part NAME` prints one part)."""
+    if which[:1] == ("multi-part",):
+        if which[1] in NO_CACHE_PARTS:
+            import jax
+            jax.config.update("jax_enable_compilation_cache", False)
+        print(json.dumps(MULTI_PARTS[which[1]]()))
+        return
+    if "multi" in which or not which:
+        _write("torch_golden_multi.json", multi_golden())
+    if which:
+        return
     _write("torch_golden_args.json", args_golden())
     _write("torch_golden_scan.json", scan_golden())
     _write("torch_golden_horner.json", horner_golden())
@@ -423,4 +697,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]))

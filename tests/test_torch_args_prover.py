@@ -46,6 +46,7 @@ torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_golden_args.json")
+GOLDEN_MULTI = os.path.join(os.path.dirname(GOLDEN), "torch_golden_multi.json")
 SLOW = pytest.mark.slow
 CIRCUITS = ["lookup_shuffle", "range_check",
             pytest.param("all_args", marks=SLOW)]
@@ -243,11 +244,17 @@ def test_out_of_range_value_raises(port):
                      [], seed=4, device="cpu")
 
 
-def test_shplonk_is_still_refused_by_name(port):
+def test_lookup_shuffle_proves_under_shplonk(port):
+    """tests/test_shplonk.py::test_shplonk_with_lookups_shuffles: the
+    port's SHPLONK proof (seed 3) has the JAX package's bytes
+    (tests/data/torch_golden_multi.json), and each verifier reading, the
+    port's of the JAX proof and of its own, accepts."""
+    with open(GOLDEN_MULTI) as fh:
+        rec = json.load(fh)["proofs"]["lookup_shuffle_shplonk"]
     side = port["lookup_shuffle"]
-    with pytest.raises(NotImplementedError, match="SHPLONK"):
-        create_proof(side["params"], side["pk"], side["circuit"], [], seed=3,
-                     use_gwc=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="SHPLONK"):
-        verify_proof(side["params"].verifier(1), side["vk"], [],
-                     bytes.fromhex(side["rec"]["proof_hex"]), use_gwc=False)
+    assert side["vk"].pinned() == rec["pinned_vk"]
+    proof = create_proof(side["params"], side["pk"], side["circuit"], [],
+                         seed=rec["prover_seed"], use_gwc=False, device="cpu")
+    assert proof.hex() == rec["proof_hex"]
+    assert verify_proof(side["params"].verifier(1), side["vk"], [], proof,
+                        use_gwc=False)

@@ -14,7 +14,9 @@ import torch
 import halo2_tpu_torch
 from halo2_tpu_torch.circuits import SimpleCircuit
 from halo2_tpu_torch.plonk.keygen import keygen
-from halo2_tpu_torch.plonk.prover import create_proof
+from halo2_tpu_torch.io import load_params, load_witness, save_witness
+from halo2_tpu_torch.plonk.prover import (create_proof, create_proof_multi,
+                                          create_proof_from_witness)
 from halo2_tpu_torch.poly.commitment import Params
 from halo2_tpu_torch.utils.device import require_device
 
@@ -52,6 +54,9 @@ def test_package_has_its_modules():
                  "halo2_tpu_torch.plonk.shuffle_prover",
                  "halo2_tpu_torch.plonk.range_check",
                  "halo2_tpu_torch.plonk.verifier",
+                 "halo2_tpu_torch.multiopen.shplonk",
+                 "halo2_tpu_torch.io.cs_format",
+                 "halo2_tpu_torch.io.serialization",
                  "halo2_tpu_torch.convert"):
         assert name in MODULES
 
@@ -110,6 +115,25 @@ def test_keygen_and_create_proof_raise_without_a_card():
         keygen(params, SimpleCircuit())
     with pytest.raises(RuntimeError, match="CUDA"):
         create_proof(params, None, SimpleCircuit(3, 5), [[0]], seed=0)
+
+
+def test_multi_prover_and_file_loaders_raise_without_a_card(tmp_path):
+    _no_card()
+    params = Params.unsafe_setup(2, seed=1, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_proof_multi(params, None, [SimpleCircuit(3, 5)], [[[0]]],
+                           seed=0)
+    path = str(tmp_path / "params.bin")
+    with open(path, "wb") as fh:
+        params.write(fh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_params(path)
+    wpath = str(tmp_path / "witness.bin")
+    save_witness([[1, 2, 3, 4]], wpath)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_witness(wpath)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_proof_from_witness(params, None, [[0]], wpath, seed=0)
 
 
 def test_chip_smoke_exits_nonzero_and_prints_no_result_without_a_card():

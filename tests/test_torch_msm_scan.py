@@ -187,6 +187,34 @@ def test_kernel_write_rule_matches_bucket_ends(golden):
         assert blk.tolist() == np.where(writer >= 0, writer // S, 0).tolist()
 
 
+def _digits_at_or_above_nb_cases():
+    """(G, n) sorted digits with one at or above nb = 5: the fault's input
+    (window 1 of two), the same digit in each window of three in turn, the
+    last window, digits far above nb and a whole window above it."""
+    cases = [[[0, 1, 6], [0, 1, 2]], [[0, 1, 2], [0, 1, 6]]]
+    for g in range(3):
+        rows = [[0, 2, 2, 4] for _ in range(3)]
+        rows[g] = [0, 2, 4, 5]
+        cases.append(rows)
+    cases += [[[1, 3, 9, 100], [0, 0, 4, 4]], [[5, 6, 7, 8], [0, 1, 2, 3]],
+              [[0, 1, 2, 3], [5, 5, 6, 6]]]
+    return cases
+
+
+@pytest.mark.parametrize("d", _digits_at_or_above_nb_cases())
+def test_bucket_ends_drops_digits_at_or_above_nb(d):
+    """A digit >= nb falls in no bucket of any window, as the reference's
+    truncation and the kernel's clamp have it (the plain version once
+    counted it in the next window's histogram, or raised in the last)."""
+    nb = 5
+    d = np.asarray(d, dtype=np.int32)
+    want = np.asarray(jsorted._bucket_ends(jnp.asarray(d), nb)).tolist()
+    assert cuda_point.bucket_ends(torch.from_numpy(d), nb).tolist() == want
+    # the kernel's write rule on the same sorted digits
+    writer, _ = kernel_writes(d << 1, d.shape[1], nb)
+    assert writer.tolist() == want
+
+
 def test_msm_scan_checks_its_operands_and_launches_nothing_here(golden):
     rows, order, key = _inputs(golden["batches"][2], slice(None))
     before = dict(cuda_point.launch_counts)

@@ -1,7 +1,9 @@
 """The port's slice as a whole against the JAX package, on the CPU:
 Params.unsafe_setup -> keygen -> create_proof -> verify_proof for
 tests/test_e2e.py's SimpleCircuit (custom gate, copy constraints, a
-constant, a public input), K = 4, Params seed 7, opened with GWC.
+constant, a public input), K = 4, Params seed 7, opened with GWC; and
+under SHPLONK, that circuit and a lookup_any circuit against the SHPLONK
+proofs of tests/data/torch_golden_multi.json.
 
 Both packages prove from the same seeds.  Tolerance: none — SRS bytes, the
 pinned verifying key and the proof bytes are compared for equality, once
@@ -33,8 +35,7 @@ from tests.data.gen_torch_golden import golden_of, params_bytes, vk_hash
 from tests.test_e2e import K, SimpleCircuit as JSimpleCircuit, expected_out
 
 from halo2_tpu_torch import convert
-from halo2_tpu_torch.circuits import SimpleCircuit
-from halo2_tpu_torch.plonk import Circuit
+from halo2_tpu_torch.circuits import LookupAnyCircuit, SimpleCircuit
 from halo2_tpu_torch.plonk.keygen import keygen, rebuild_cs
 from halo2_tpu_torch.plonk.prover import create_proof
 from halo2_tpu_torch.plonk.verifier import verify_proof
@@ -49,6 +50,7 @@ OUT = expected_out(A, B)
 SEEDS = (0, 1)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_golden_proof.json")
+GOLDEN_MULTI = os.path.join(os.path.dirname(GOLDEN), "torch_golden_multi.json")
 
 
 class _Proofs(dict):
@@ -196,44 +198,46 @@ def test_golden_file_matches_live_jax_proofs(jax_side, golden):
     assert golden == golden_of(jp, jax_side["vk"], proofs)
 
 
-class _LookupCircuit(Circuit):
-    """One advice column looked up in one fixed table column."""
-
-    def without_witnesses(self):
-        return _LookupCircuit()
-
-    def configure(self, meta):
-        a = meta.advice_column()
-        t = meta.fixed_column()
-        meta.lookup_any("in_table", lambda m: [(m.query_advice(a, 0),
-                                                m.query_fixed(t, 0))])
-        return a, t
-
-    def synthesize(self, config, layouter):
-        pass
+@pytest.fixture(scope="module")
+def golden_multi():
+    """The JAX package's SHPLONK proofs
+    (tests/data/torch_golden_multi.json)."""
+    with open(GOLDEN_MULTI) as fh:
+        return json.load(fh)["proofs"]
 
 
-def test_lookup_circuit_is_refused_by_name(port_side):
-    """The lookup itself is no longer refused: a circuit with a lookup
-    keygens, with its lookup in the constraint system (its GWC proofs are
-    checked in tests/test_torch_args_prover.py).  What is refused, by name,
-    is the SHPLONK opening of such a circuit's proof."""
-    vk, pk = keygen(port_side["params"], _LookupCircuit(), device="cpu")
+def test_lookup_circuit_proves_under_shplonk(port_side, golden_multi):
+    """A circuit with a lookup (one advice column in one fixed column)
+    keygens with its lookup in the constraint system, and its SHPLONK proof
+    (seed 0) has the JAX package's bytes and is accepted."""
+    rec = golden_multi["lookup_any_shplonk"]
+    vk, pk = keygen(port_side["params"], LookupAnyCircuit(), device="cpu")
     assert len(vk.cs.lookups) == 1
     assert "(lookup0," in vk.pinned()
-    with pytest.raises(NotImplementedError, match="SHPLONK"):
-        create_proof(port_side["params"], pk, _LookupCircuit(), [], seed=0,
-                     use_gwc=False, device="cpu")
+    assert vk.pinned() == rec["pinned_vk"]
+    proof = create_proof(port_side["params"], pk,
+                         LookupAnyCircuit(LookupAnyCircuit.VALUES), [],
+                         seed=rec["prover_seed"], use_gwc=False,
+                         device="cpu")
+    assert proof.hex() == rec["proof_hex"]
+    assert verify_proof(port_side["params"].verifier(1), vk, [], proof,
+                        use_gwc=False)
 
 
-def test_shplonk_is_refused_by_name(port_side):
-    with pytest.raises(NotImplementedError, match="SHPLONK"):
-        create_proof(port_side["params"], port_side["pk"],
-                     SimpleCircuit(A, B), [[OUT]], seed=0, use_gwc=False,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="SHPLONK"):
-        verify_proof(port_side["params"].verifier(1), port_side["vk"],
-                     [[OUT]], port_side["proofs"][0], use_gwc=False)
+def test_shplonk_proof_bytes_equal_and_verify(port_side, golden_multi):
+    """tests/test_shplonk.py's SimpleCircuit proof under SHPLONK (seed 0):
+    the JAX package's bytes, accepted with its instance and rejected with
+    another."""
+    rec = golden_multi["simple_shplonk"]
+    proof = create_proof(port_side["params"], port_side["pk"],
+                         SimpleCircuit(A, B), [[OUT]], seed=rec["prover_seed"],
+                         use_gwc=False, device="cpu")
+    assert rec["instances"] == [[[OUT]]]
+    assert proof.hex() == rec["proof_hex"]
+    pv = port_side["params"].verifier(1)
+    assert verify_proof(pv, port_side["vk"], [[OUT]], proof, use_gwc=False)
+    assert not verify_proof(pv, port_side["vk"], [[OUT + 1]], proof,
+                            use_gwc=False)
 
 
 def test_device_mismatch_and_bad_instances_raise(port_side):
