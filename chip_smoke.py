@@ -2,9 +2,10 @@
 """Smoke run of halo2_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--k K]
-                          [--phases env,kernels,golden,prove,args,multi,dft]
+                          [--phases env,kernels,golden,prove,args,multi,synth,dft]
 
-Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
+Builds the CUDA kernels from halo2_tpu_torch/csrc and the host codec from
+halo2_tpu_torch/native, then:
 
   kernels  holds every kernel against its plain PyTorch version on the card
            (exact equality of the limb words: the tolerance is zero), at the
@@ -46,6 +47,15 @@ Builds the CUDA kernels from halo2_tpu_torch/csrc, then:
            into a fresh Params and ProvingKey, create_proof_from_witness
            against create_proof on the in-memory key (same seed, SHPLONK),
            and the reloaded vk verifying the proof;
+  synth    BlockMulChainCircuit (a chain of mul gates, a step a row, in 64
+           regions handed to layouter.assign_regions) at 2^k rows: keygen
+           on the card, then its regions synthesized by forked workers
+           (default_workers()), proved and verified with the same counts and
+           checks; then synthesize_witness alone with 1 and with W workers
+           (seconds of each, equal columns), the proof of one worker equal
+           to the W workers' proof, their witness files equal, and the
+           degraded (>= 2^64) column's export by the host codec equal to the
+           plain Python join (seconds of each);
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
            to 0 just before and read just after, its output against the host
@@ -70,12 +80,14 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from halo2_tpu_torch import io as h2io
+from halo2_tpu_torch import native
 from halo2_tpu_torch.circuit import FlatFloorPlanner
-from halo2_tpu_torch.circuits import (AllArgsCircuit, MulChainCircuit,
-                                      SimpleCircuit)
+from halo2_tpu_torch.circuits import (AllArgsCircuit, BlockMulChainCircuit,
+                                      MulChainCircuit, SimpleCircuit)
 from halo2_tpu_torch.curves import cuda_point, g1
 from halo2_tpu_torch.fields import cuda_ops
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS as P, fq, fr
@@ -87,9 +99,11 @@ from halo2_tpu_torch.multiopen import BatchVerifier
 from halo2_tpu_torch.ntt import dft_matmul as dm
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
+from halo2_tpu_torch.plonk.parallel_synthesis import default_workers
 from halo2_tpu_torch.plonk.prover import (create_proof,
                                           create_proof_from_witness,
-                                          create_proof_multi, create_witness)
+                                          create_proof_multi, create_witness,
+                                          synthesize_witness)
 from halo2_tpu_torch.plonk.verifier import verify_proof, verify_proof_multi
 from halo2_tpu_torch.poly.commitment import Params
 from halo2_tpu_torch.utils import build, profiling
@@ -196,6 +210,9 @@ def phase_env(out):
     nvcc = subprocess.run([build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     built = build.build_all()
+    t0 = time.time()
+    native.lib()                             # the host codec, built by g++
+    codec_s = time.time() - t0
     ptxas = {}
     for log in built["logs"].values():
         ptxas.update(build.ptxas_usage(log))
@@ -205,6 +222,7 @@ def phase_env(out):
            "cuda": torch.version.cuda,
            "nvcc": nvcc.stdout.strip().splitlines()[-2:],
            "build_seconds": round(built["seconds"], 2),
+           "codec_build_seconds": round(codec_s, 2),
            "int_rate": profiling.card_int_rate(), "ptxas": ptxas}
     print(json.dumps({"env": env}), flush=True)
 
@@ -214,7 +232,8 @@ def phase_env(out):
 # whether it opens with SHPLONK
 PATH_CIRCUITS = (("prove", lambda: MulChainCircuit(1), 1, False),
                  ("args", lambda: AllArgsCircuit(), 1, False),
-                 ("multi", lambda: AllArgsCircuit(), 2, True))
+                 ("multi", lambda: AllArgsCircuit(), 2, True),
+                 ("synth", lambda: BlockMulChainCircuit(1, 1), 1, False))
 # the witness seeds of the multi path's two AllArgsCircuit instances
 MULTI_SEEDS = (5, 6)
 
@@ -972,8 +991,8 @@ def _drive(name, k, seed, device, circuits, instances_list,
     to 0 just before and read just after; a proof with one byte flipped
     and wrong instances (swapped where the proofs' differ, else one
     altered) must be rejected, and BatchVerifier must accept.  Then
-    `after(params, vk, pk)`, whose dict joins the path's JSON line (with
-    `extra`).  Prints the line and returns the path's launches; fails
+    `after(params, vk, pk, proof)`, whose dict joins the path's JSON line
+    (with `extra`).  Prints the line and returns the path's launches; fails
     where a family of kernels launched more than `family_limits` gives
     it."""
     torch.cuda.reset_peak_memory_stats(device)
@@ -1035,7 +1054,7 @@ def _drive(name, k, seed, device, circuits, instances_list,
         if launches[kernel] != counters[per]:
             raise AssertionError(f"{name}: {kernel} made {launches[kernel]} "
                                  f"launches for {counters[per]} {per}")
-    more = after(params, vk, pk) if after else {}
+    more = after(params, vk, pk, proof) if after else {}
     cs = vk.cs
     print(json.dumps({name: {
         "k": k, "rows": 1 << k, "usable_rows": cs.usable_rows(1 << k),
@@ -1085,7 +1104,7 @@ def _file_round_trip(circuit, instances, seed, device):
     witness of `circuit` to files and back; the proof from the witness
     file on the reloaded key against create_proof on the in-memory one
     (SHPLONK, one seed), and the reloaded vk verifying it."""
-    def run(params, vk, pk):
+    def run(params, vk, pk, proof):
         t0 = time.time()
         with tempfile.TemporaryDirectory() as tmp:
             path = {f: os.path.join(tmp, f) for f in
@@ -1143,6 +1162,122 @@ def phase_multi(k: int, seed: int, device) -> dict:
                                           _shplonk_sets(cs, 2).items()}},
                   after=_file_round_trip(circuits[0], instances[0], seed + 2,
                                          device))
+
+
+# the synth path: BlockMulChainCircuit's blocks (regions handed to the
+# forked workers) and its witness (a small, so that the first region leaves
+# column a0 a u64 column; b a machine int above 2^16, so that x passes 2^64
+# within a few steps and a0 degrades in the overflow merge)
+SYNTH_BLOCKS = 64
+SYNTH_AB = (3, 1000003)
+
+
+def _same_columns(xs, ys) -> bool:
+    """Equal witness columns: the same kind (u64 array or ints) and the
+    same values."""
+    for x, y in zip(xs, ys):
+        if isinstance(x, np.ndarray) != isinstance(y, np.ndarray):
+            return False
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        elif list(x) != list(y):
+            return False
+    return len(xs) == len(ys)
+
+
+def _synth_checks(circuit_of, instances, seed, device):
+    """`after` of the synth path: the witness of 1 and of default_workers()
+    workers (seconds of synthesize_witness alone, equal columns), the proof
+    of one worker against the path's proof (made with W workers, same
+    seed), the witness files of both, and the degraded column's export by
+    the host codec against the plain Python join."""
+    def run(params, vk, pk, proof):
+        workers = default_workers()
+        if workers < 2:
+            raise AssertionError("synth: default_workers() is 1 on this "
+                                 "machine, nothing runs in parallel")
+        seconds, advice = {}, {}
+        for w in (1, workers):
+            fan_outs = profiling.counters.get("synth_fan_outs", 0)
+            t0 = time.time()
+            advice[w], _ = synthesize_witness(pk, circuit_of(w), instances,
+                                              FlatFloorPlanner)
+            seconds[w] = time.time() - t0
+            forked = profiling.counters.get("synth_fan_outs", 0) - fan_outs
+            if forked != (0 if w == 1 else 1):
+                raise AssertionError(f"synth: {w} workers made {forked} "
+                                     f"fan-outs")
+        if not _same_columns(advice[1], advice[workers]):
+            raise AssertionError("synth: the witness of 1 and of "
+                                 f"{workers} workers differ")
+        t0 = time.time()
+        proof1 = create_proof(params, pk, circuit_of(1), instances,
+                              seed=seed + 1, floor_planner=FlatFloorPlanner,
+                              device=device)
+        proof1_s = time.time() - t0
+        if proof1 != proof:
+            raise AssertionError("synth: the proof of 1 worker differs from "
+                                 f"the proof of {workers}")
+        files = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for w in (1, workers):
+                path = os.path.join(tmp, f"witness{w}.bin")
+                create_witness(pk, circuit_of(w), instances, path,
+                               floor_planner=FlatFloorPlanner)
+                with open(path, "rb") as fh:
+                    files[w] = fh.read()
+        if files[1] != files[workers]:
+            raise AssertionError("synth: the witness files of 1 and of "
+                                 f"{workers} workers differ")
+        degraded = [c for c in advice[workers]
+                    if not isinstance(c, np.ndarray)]
+        if not degraded:
+            raise AssertionError("synth: no column went past 2^64")
+        col = degraded[0]
+        t0 = time.time()
+        blob = native.longs_to_blob(col, P)
+        codec_s = time.time() - t0
+        t0 = time.time()
+        plain = native.plain_longs_to_blob(col, P)
+        plain_s = time.time() - t0
+        if blob != plain:
+            raise AssertionError("synth: the codec's export of the degraded "
+                                 "column differs from the plain join")
+        return {"synthesis": {
+            "cpu_count": os.cpu_count(),
+            "cpus_available": len(os.sched_getaffinity(0)),
+            "workers": workers,
+            "synthesize_witness_seconds": {str(w): round(s_, 3)
+                                           for w, s_ in seconds.items()},
+            "witness_equal": True, "proof_equal": True,
+            "create_proof_seconds_1_worker": round(proof1_s, 3),
+            "witness_file_bytes": len(files[1]), "witness_files_equal": True,
+            "degraded_columns": len(degraded),
+            "codec": {"values": len(col), "blob_bytes": len(blob),
+                      "longs_to_blob_seconds": round(codec_s, 4),
+                      "plain_join_seconds": round(plain_s, 4),
+                      "bytes_equal": True}}}
+    return run
+
+
+def phase_synth(k: int, seed: int, device) -> dict:
+    """BlockMulChainCircuit at 2^k rows: keygen on the card, its blocks
+    synthesized by forked workers, proved and verified, then the checks of
+    _synth_checks."""
+    steps = BlockMulChainCircuit.steps_for(k, SYNTH_BLOCKS)
+    a, b = SYNTH_AB
+
+    def circuit_of(workers):
+        return BlockMulChainCircuit(steps, SYNTH_BLOCKS, a, b,
+                                    workers=workers)
+    circuit = circuit_of(None)               # default_workers()
+    instances = [[circuit.expected_out()]]
+    return _drive("synth", k, seed, device, [circuit], [instances],
+                  FlatFloorPlanner,
+                  extra={"blocks": SYNTH_BLOCKS,
+                         "rows_assigned": circuit.rows_used()},
+                  after=_synth_checks(circuit_of, instances, seed, device))
 
 
 def _load_dft_probe():
@@ -1239,7 +1374,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
-ALL_PHASES = "env,kernels,golden,prove,args,multi,dft"
+ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,dft"
 
 
 def main(argv=None) -> int:
@@ -1271,6 +1406,8 @@ def main(argv=None) -> int:
         paths["args"] = phase_args(args.k, args.seed, device)
     if "multi" in phases:
         paths["multi"] = phase_multi(args.k, args.seed, device)
+    if "synth" in phases:
+        paths["synth"] = phase_synth(args.k, args.seed, device)
     if "dft" in phases:
         entry, paths["dft"] = phase_dft(device, out["smi"])
         entries.append(entry)

@@ -214,11 +214,26 @@ class SingleChipLayouter:
         return result
 
     def assign_regions(self, name, fns, workers=None):
-        """Assign a batch of independent regions, one after the other.
-        The closures must write disjoint cells and not use
-        constrain_constant, so that a backend may run them in any order;
-        `workers` is accepted for callers written against a parallel
-        backend and is not used.  Returns the closures' results in order."""
+        """Assign a batch of independent regions, in forked workers when
+        the backend supports it (flat planner, more than one closure,
+        prove mode and a shared-memory witness backend: the rayon fan-out
+        of prover.rs:1525-1781 / flat.rs:286-336; plonk/parallel_synthesis
+        .py).  The closures must write disjoint cells, not use
+        constrain_constant and hold no tensor.  Keygen, MockProver, the
+        other planners, `workers=1` and a backend with a degraded advice
+        column run them in turn, so circuits written against this API run
+        everywhere.  Returns the closures' results in order (from workers:
+        results that do not pickle come back as None)."""
+        can_parallel = (
+            self.flat and len(fns) > 1
+            and (workers is None or workers > 1)
+            and self.backend.is_in_prove_mode()
+            and getattr(self.backend, "supports_parallel_regions",
+                        lambda: False)())
+        if can_parallel:
+            from halo2_tpu_torch.plonk.parallel_synthesis import \
+                run_parallel_regions
+            return run_parallel_regions(self, fns, workers)
         return [self.assign_region(f"{name}#{i}", fn)
                 for i, fn in enumerate(fns)]
 

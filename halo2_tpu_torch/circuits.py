@@ -1,6 +1,7 @@
 """Example circuits of the class this package proves: custom gates, copy
 constraints, a constant and a public input (`SimpleCircuit`,
-`MulChainCircuit`); logup lookups with two input sets and a shuffle
+`MulChainCircuit`, and `BlockMulChainCircuit`, whose regions synthesize in
+forked workers); logup lookups with two input sets and a shuffle
 (`LookupShuffleCircuit`); a range check by sorted column
 (`RangeCheckCircuit`); every argument in one proof (`AllArgsCircuit`); the
 reference's integration spec circuit (`PlonkApiCircuit`) and a
@@ -157,6 +158,110 @@ class MulChainCircuit(Circuit):
             out, prev_val = layouter.assign_region(f"step{i}", step)
             prev_cell = out.cell
         layouter.constrain_instance(prev_cell, config.instance, 0)
+
+
+class BlockMulChainCircuit(Circuit):
+    """MulChainCircuit's chain x_{i+1} = x_i * b, a step a row, split into
+    `blocks` regions that `layouter.assign_regions` hands to forked
+    workers (plonk/parallel_synthesis.py) when it proves.  Prove it with
+    FlatFloorPlanner: every offset is an absolute row.
+
+    Rows 0-1 are a region of their own, assigned before the fan-out:
+    x_0 = a at row 0 times the constant 7 (assign_advice_from_constant,
+    which a parallel region may not use), x_1 at row 1.  Block j takes rows
+    [s_j, s_j + L_j]: a step a row (the selector on, x in a0, b in a1) and
+    its last product in a0 at row s_j + L_j.  Its start value x_1 *
+    b^(steps before it) comes from `pow`, so no block waits for another.
+    A last region copies each block's first cell to the last cell of the
+    block before it (the first block's to row 1), and the last product is
+    the instance.  Every x past the first few dozen steps is a field
+    element of 2^64 or more, so column a0 reaches the prover through the
+    overflow merge and the host codec; a1 holds b, a machine int, in
+    shared memory.  `a` must stay below 2^61, so that the first region
+    leaves a0 a u64 column and the blocks may fan out.
+
+    The closures use nothing but the region they are handed, so the JAX
+    package proves this very class (tests/data/gen_torch_golden.py)."""
+
+    def __init__(self, steps: int, blocks: int, a=None, b=None,
+                 workers=None):
+        if steps < blocks or blocks < 1:
+            raise ValueError("need at least one step a block")
+        self.steps, self.blocks = steps, blocks
+        self.a, self.b = a, b
+        self.workers = workers
+
+    def without_witnesses(self):
+        return BlockMulChainCircuit(self.steps, self.blocks,
+                                    workers=self.workers)
+
+    def configure(self, meta):
+        return _configure_mul(meta)
+
+    @staticmethod
+    def steps_for(k: int, blocks: int, fill: float = 0.95) -> int:
+        """The steps after the first that make the circuit assign `fill`
+        of the usable rows of a 2^k-row domain (the first region's two
+        rows, and one row a block for its last product, included)."""
+        from halo2_tpu_torch.plonk.circuit import ConstraintSystem
+        cs = ConstraintSystem()
+        _configure_mul(cs)
+        return int(cs.usable_rows(1 << k) * fill) - 2 - blocks
+
+    def rows_used(self) -> int:
+        return 2 + self.steps + self.blocks
+
+    def layout(self) -> list:
+        """(first row, steps, steps before it) of each block."""
+        out, row, done = [], 2, 1
+        for j in range(self.blocks):
+            length = self.steps // self.blocks \
+                + (1 if j < self.steps % self.blocks else 0)
+            out.append((row, length, done))
+            row += length + 1
+            done += length
+        return out
+
+    def expected_out(self) -> int:
+        return self.a * 7 * pow(self.b, self.steps, P) % P
+
+    def synthesize(self, config, layouter):
+        a, b = self.a, self.b
+        x1 = None if a is None else a * 7 % P
+
+        def start(region):
+            region.enable_selector("s", config.s_mul, 0)
+            region.assign_advice("x", config.a0, 0, a)
+            region.assign_advice_from_constant("seven", config.a1, 0, 7)
+            return region.assign_advice("x7", config.a0, 1, x1)
+        first_out = layouter.assign_region("start", start)
+
+        def block(row, length, before):
+            def fn(region):
+                x = None if x1 is None else x1 * pow(b, before - 1, P) % P
+                first = None
+                for i in range(length):
+                    region.enable_selector("s", config.s_mul, row + i)
+                    cell = region.assign_advice("x", config.a0, row + i, x)
+                    region.assign_advice("b", config.a1, row + i, b)
+                    first = first or cell
+                    x = None if x is None else x * b % P
+                return first, region.assign_advice(
+                    "xb", config.a0, row + length, x)
+            return fn
+
+        ends = layouter.assign_regions(
+            "blocks", [block(*at) for at in self.layout()],
+            workers=self.workers)
+
+        def links(region):
+            prev = first_out
+            for first, last in ends:
+                region.constrain_equal(first.cell, prev.cell)
+                prev = last
+            return prev
+        last = layouter.assign_region("links", links)
+        layouter.constrain_instance(last.cell, config.instance, 0)
 
 
 class _LookupShuffleConfig:

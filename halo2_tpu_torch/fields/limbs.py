@@ -19,14 +19,19 @@ Layout (decided once, here):
 for a CUDA tensor and runs its plain version for a CPU tensor; so do
 `pow_static` (hence `inv`) and `prefix_mul`, each one kernel chain on the
 card, whose plain versions (`plain_pow_static`, `plain_prefix_mul`) are
-the composed loops here.  Everything else is composed of those.
+the composed loops here.  Everything else is composed of those.  The
+host conversions `encode_np` and `decode` go through the host codec
+(native/); `plain_encode_np` and `plain_decode` are their plain versions.
 """
 
 from __future__ import annotations
 
+import operator
+
 import numpy as np
 import torch
 
+from halo2_tpu_torch import native
 from halo2_tpu_torch.fields import cuda_ops
 
 LIMB_BITS = 16
@@ -139,8 +144,13 @@ class Field:
         return (x * self.R_inv) % self.p
 
     def encode_np(self, xs) -> np.ndarray:
-        """Canonical values -> (16, N) uint32 Montgomery limbs (numpy)."""
-        return ints_to_limbs_np([self.to_mont_int(int(x) % self.p)
+        """Ints (reduced mod p here) -> (16, N) uint32 Montgomery limbs
+        (numpy), through the host codec (native/)."""
+        return native.encode_mont_np(xs, self)
+
+    def plain_encode_np(self, xs) -> np.ndarray:
+        """`encode_np`'s plain version: one Python product a value."""
+        return ints_to_limbs_np([self.to_mont_int(operator.index(x) % self.p)
                                  for x in xs])
 
     def encode(self, xs) -> torch.Tensor:
@@ -174,7 +184,14 @@ class Field:
         return self.to_mont(x)
 
     def decode(self, limbs) -> list:
-        """(16, N) Montgomery limbs -> list of canonical Python ints."""
+        """(16, N) Montgomery limbs -> list of canonical Python ints,
+        through the host codec (native/)."""
+        arr = to_numpy(limbs) if isinstance(limbs, torch.Tensor) \
+            else np.asarray(limbs)
+        return native.decode_mont_np(arr, self)
+
+    def plain_decode(self, limbs) -> list:
+        """`decode`'s plain version: one Python product a value."""
         arr = to_numpy(limbs) if isinstance(limbs, torch.Tensor) \
             else np.asarray(limbs)
         return [self.from_mont_int(v) for v in limbs_to_ints(arr)]

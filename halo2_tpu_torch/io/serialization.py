@@ -21,6 +21,7 @@ import os
 import numpy as np
 import torch
 
+from halo2_tpu_torch import native
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS, fr
 from halo2_tpu_torch.fields.limbs import N_LIMBS, to_numpy
 from halo2_tpu_torch.utils.device import require_device
@@ -171,9 +172,8 @@ def save_witness(advice_cols: list, path: str) -> None:
             quad[:, 0] = col                 # below 2^64 < p: canonical
             quad[:, 1:] = 0
         else:
-            mm[:] = np.frombuffer(
-                b"".join((int(v) % P).to_bytes(32, "little") for v in col),
-                dtype=np.uint8)
+            mm[:] = np.frombuffer(native.longs_to_blob(col, P),
+                                  dtype=np.uint8)
         mm.flush()
         del mm
 

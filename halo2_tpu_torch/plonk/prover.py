@@ -35,6 +35,7 @@ import random
 import numpy as np
 import torch
 
+from halo2_tpu_torch import native
 from halo2_tpu_torch.circuit import Assignment, Cell, SimpleFloorPlanner
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.multiopen import ProverQuery
@@ -91,7 +92,7 @@ class WitnessCollection(Assignment):
     def _degrade(self, ci):
         """numpy column -> Python int list (first big value)."""
         if isinstance(self.advice[ci], np.ndarray):
-            self.advice[ci] = [int(v) for v in self.advice[ci]]
+            self.advice[ci] = self.advice[ci].tolist()
         return self.advice[ci]
 
     def assign_advice(self, column, row, value):
@@ -167,6 +168,67 @@ class WitnessCollection(Assignment):
             self.max_assigned[ci] = last
         if vmax > self.max_value[ci]:
             self.max_value[ci] = vmax
+
+    def assign_advice_big(self, ci, rows, values):
+        """Exact writes of already-reduced values, some of 2^64 or more,
+        into column `ci` (the parallel-synthesis overflow merge, one call
+        a column and worker): the column degrades once if a value needs
+        it."""
+        if not rows:
+            return
+        col = self.advice[ci]
+        vmax = max(values)
+        if isinstance(col, np.ndarray) and vmax >> 64:
+            col = self._degrade(ci)
+        for row, v in zip(rows, values):
+            col[row] = v
+        self.max_assigned[ci] = max(self.max_assigned[ci], max(rows))
+        self.max_value[ci] = max(self.max_value[ci], vmax)
+
+    def supports_parallel_regions(self):
+        # a column already degraded to Python ints would send every worker
+        # write to it through the overflow records (no parallelism, and the
+        # values over a pipe): such a collection runs its regions in turn
+        return all(isinstance(c, np.ndarray) for c in self.advice)
+
+    def share_columns(self):
+        """Move the u64 advice columns into anonymous POSIX shared memory,
+        so that forked synthesis workers write straight into them (the
+        *mut [F] of prover.rs:1548-1626).  Returns the shared view of each
+        column (None for a degraded column, whose worker writes go through
+        the overflow merge).  Pair with unshare_columns() after the join:
+        closing a SharedMemory unmaps its buffer under any view left."""
+        from multiprocessing import shared_memory
+        self._shms, self._shm_cols = [], set()
+        for ci, col in enumerate(self.advice):
+            if not isinstance(col, np.ndarray):
+                continue
+            shm = shared_memory.SharedMemory(create=True, size=col.nbytes)
+            arr = np.ndarray(col.shape, np.uint64, buffer=shm.buf)
+            arr[:] = col
+            self.advice[ci] = arr
+            self._shms.append(shm)
+            self._shm_cols.add(ci)
+            try:  # the mapping outlives the name: nothing leaks on a crash
+                shm.unlink()
+            except FileNotFoundError:
+                pass
+        return [self.advice[ci] if ci in self._shm_cols else None
+                for ci in range(len(self.advice))]
+
+    def unshare_columns(self):
+        """Copy the columns out of shared memory and release the mappings
+        (one copy a column)."""
+        for ci in self._shm_cols:
+            if isinstance(self.advice[ci], np.ndarray):
+                self.advice[ci] = np.array(self.advice[ci], copy=True)
+        self._shm_cols = set()
+        for shm in self._shms:
+            try:
+                shm.close()
+            except BufferError:  # a stray view still holds the mapping
+                pass
+        self._shms = []
 
     def resolve_deferred(self):
         """Resolve rational cells with ONE batch inversion
@@ -351,12 +413,12 @@ def create_proof_multi(params, pk, circuits, instances_list,
     # proof), then every proof's advice commitments in one batch
     def col_to_dev(c):
         # columnar staging: u64 columns upload RAW (8 B/value), degraded
-        # bigint columns upload 32-byte canonical rows; both convert
-        # canonical->Montgomery on the device (one mul by R^2)
+        # bigint columns upload 32-byte canonical rows (exported by the
+        # host codec); both convert canonical->Montgomery on the device
+        # (one mul by R^2)
         if isinstance(c, np.ndarray):
             return F.encode_u64_dev(c[None])[:, 0, :]
-        blob = b"".join(int(v).to_bytes(32, "little") for v in c)
-        return F.encode_le_bytes_dev(blob, n)
+        return F.encode_le_bytes_dev(native.longs_to_blob(c, P), n)
 
     advice_lagrange, advice_bits = [], []
     for p_i in proofs:

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Generate tests/data/torch_golden_proof.json,
 tests/data/torch_golden_horner.json, tests/data/torch_golden_scan.json,
-tests/data/torch_golden_args.json and tests/data/torch_golden_multi.json
-from the JAX package.
+tests/data/torch_golden_args.json, tests/data/torch_golden_multi.json and
+tests/data/torch_golden_synth.json from the JAX package.
 
-    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py [multi]
+    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py [multi|synth]
 
 Proves `tests/test_e2e.py`'s SimpleCircuit (K = 4, Params.unsafe_setup
 seed 7, a = 3, b = 5) with halo2_tpu for the prover seeds 0 and 1 and
@@ -54,6 +54,13 @@ from that witness file (seed 5); and `shplonk._construct_intermediate_sets`
 on a recorded query list (tests/test_torch_multi.py,
 tests/test_torch_shplonk.py, tests/test_torch_io.py).  Each part runs in a
 process of its own.
+
+The sixth (`synth` writes it alone) holds the pinned vk, the GWC proof
+and the sha256 of the witness file of halo2_tpu_torch.circuits'
+BlockMulChainCircuit at K = 5 (four blocks, a = 3, b = 1000003, params
+seed 7, prover seed 1, FlatFloorPlanner): the bytes the port must give
+with its regions synthesized in turn and in forked workers
+(tests/test_torch_parallel_synthesis.py).
 """
 
 import functools
@@ -665,6 +672,45 @@ def multi_golden() -> dict:
             "intermediate_sets": parts["intermediate_sets"]}
 
 
+# the block chain of halo2_tpu_torch.circuits.BlockMulChainCircuit, the
+# circuit the port synthesizes in forked workers (`synth` writes it alone)
+SYNTH_K, SYNTH_BLOCKS, SYNTH_AB = 5, 4, (3, 1000003)
+SYNTH_PARAMS_SEED, SYNTH_PROVER_SEED = 7, 1
+
+
+def synth_golden() -> dict:
+    """The JAX package's keygen, witness file and GWC proof of the port's
+    BlockMulChainCircuit (K = 5, four blocks, FlatFloorPlanner; the
+    class's closures use only the region they are given, so the JAX
+    package proves the port's class itself), synthesized in turn."""
+    import tempfile
+    from halo2_tpu.circuit import FlatFloorPlanner
+    from halo2_tpu.plonk.prover import create_witness
+    from halo2_tpu.plonk.verifier import verify_proof
+    from halo2_tpu_torch.circuits import BlockMulChainCircuit
+    steps = BlockMulChainCircuit.steps_for(SYNTH_K, SYNTH_BLOCKS)
+    a, b = SYNTH_AB
+    circuit = BlockMulChainCircuit(steps, SYNTH_BLOCKS, a, b, workers=1)
+    inst = [[circuit.expected_out()]]
+    params = Params.unsafe_setup(SYNTH_K, seed=SYNTH_PARAMS_SEED)
+    vk, pk = keygen(params, circuit.without_witnesses(),
+                    floor_planner=FlatFloorPlanner)
+    proof = create_proof(params, pk, circuit, inst, seed=SYNTH_PROVER_SEED,
+                         floor_planner=FlatFloorPlanner)
+    assert verify_proof(params.verifier(1), vk, inst, proof)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "witness.bin")
+        create_witness(pk, circuit, inst, path,
+                       floor_planner=FlatFloorPlanner)
+        with open(path, "rb") as fh:
+            witness = fh.read()
+    return dict(_proof_record(
+        "halo2_tpu_torch/circuits.py::BlockMulChainCircuit", SYNTH_K,
+        SYNTH_PARAMS_SEED, SYNTH_PROVER_SEED, inst, True, proof, vk),
+        steps=steps, blocks=SYNTH_BLOCKS, witness=list(SYNTH_AB),
+        witness_sha256=hashlib.sha256(witness).hexdigest())
+
+
 def _write(name: str, record: dict):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
     with open(path, "w") as fh:
@@ -673,14 +719,17 @@ def _write(name: str, record: dict):
 
 
 def main(which=()):
-    """Writes every file; `multi` as the only argument writes
-    torch_golden_multi.json alone (`multi-part NAME` prints one part)."""
+    """Writes every file; `multi` or `synth` as the only argument writes
+    torch_golden_multi.json or torch_golden_synth.json alone (`multi-part
+    NAME` prints one part)."""
     if which[:1] == ("multi-part",):
         if which[1] in NO_CACHE_PARTS:
             import jax
             jax.config.update("jax_enable_compilation_cache", False)
         print(json.dumps(MULTI_PARTS[which[1]]()))
         return
+    if "synth" in which or not which:
+        _write("torch_golden_synth.json", synth_golden())
     if "multi" in which or not which:
         _write("torch_golden_multi.json", multi_golden())
     if which:

@@ -27,7 +27,11 @@ MODULES = sorted(
                                           "halo2_tpu_torch."))
 # scripts beside the package, imported by name from the repo's root
 SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
-           "examples.torch_profile_prove", "examples.torch_msm_memory"]
+           "examples.torch_profile_prove", "examples.torch_msm_memory",
+           "examples.torch_two_chip_example",
+           "examples.torch_lookup_shuffle_example",
+           "examples.torch_circuit_layout", "examples.torch_cost_model",
+           "examples.torch_fork_cost", "examples.torch_warm_proofs"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys
@@ -57,7 +61,12 @@ def test_package_has_its_modules():
                  "halo2_tpu_torch.multiopen.shplonk",
                  "halo2_tpu_torch.io.cs_format",
                  "halo2_tpu_torch.io.serialization",
-                 "halo2_tpu_torch.convert"):
+                 "halo2_tpu_torch.convert",
+                 "halo2_tpu_torch.native",
+                 "halo2_tpu_torch.plonk.parallel_synthesis",
+                 "halo2_tpu_torch.dev", "halo2_tpu_torch.dev.mock",
+                 "halo2_tpu_torch.dev.cost", "halo2_tpu_torch.dev.gates",
+                 "halo2_tpu_torch.dev.graph"):
         assert name in MODULES
 
 
@@ -86,6 +95,30 @@ def test_sources_do_not_name_jax():
         assert "import jax" not in text, path
         assert "from halo2_tpu." not in text, path
         assert "import halo2_tpu\n" not in text, path
+
+
+_IMPORT_BUILDS_NOTHING = """
+import subprocess, sys
+def refuse(*args, **kwargs):
+    raise AssertionError(f"a build at import: {args[:1]}")
+subprocess.run = subprocess.Popen = subprocess.check_call = refuse
+import halo2_tpu_torch.native as native
+for name in sys.argv[1:]:
+    __import__(name)
+assert native._lib is None
+print("nothing built")
+"""
+
+
+def test_importing_the_codec_builds_nothing():
+    """The host codec is built at its first use, never at import: with
+    every way to start a compiler refused, the package imports and the
+    codec's extension stays unloaded."""
+    done = subprocess.run(
+        [sys.executable, "-c", _IMPORT_BUILDS_NOTHING, *MODULES], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert "nothing built" in done.stdout
 
 
 def _no_card():
