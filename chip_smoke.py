@@ -2,7 +2,8 @@
 """Smoke run of halo2_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--k K]
-                          [--phases env,kernels,golden,prove,args,multi,synth,dft]
+                          [--phases env,kernels,golden,prove,args,multi,synth,
+                                    large,dft]
 
 Builds the CUDA kernels from halo2_tpu_torch/csrc and the host codec from
 halo2_tpu_torch/native, then:
@@ -18,7 +19,9 @@ halo2_tpu_torch/native, then:
            scan, the Horner combine, the scalar ladder) are held to their
            composed plain versions at the proofs' shapes and at edge cases,
            and each public function is shown to make its one launch (three
-           for the prefix-product scan);
+           for the prefix-product scan); K2 and K3 also at the chunk shapes
+           the streamed extended inverse transform of the large path feeds
+           them;
   golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
            its seeds, each circuit of tests/data/torch_golden_args.json
            (a logup lookup over two input sets and a shuffle, K = 5; a range
@@ -56,6 +59,15 @@ halo2_tpu_torch/native, then:
            to the W workers' proof, their witness files equal, and the
            degraded (>= 2^64) column's export by the host codec equal to the
            plain Python join (seconds of each);
+  large    MulChainCircuit at 2^22 rows (whatever --k is) through the
+           large-domain sequence: create_proof(offload_lagrange=True), with
+           the seconds and the peak allocated and reserved bytes of every
+           phase, the same counts and checks as prove, and the counters
+           showing the streamed extended iNTT and the offloads ran; then
+           the identities of examples/torch_probe_k22.py at that size (NTT
+           round trip, KZG, Kate) and the streamed extended inverse
+           transform against the monolithic one at 2^23, equal
+           word for word, each with its peak bytes;
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
            to 0 just before and read just after, its output against the host
@@ -97,19 +109,22 @@ from halo2_tpu_torch.msm import sorted as msm_sorted
 from halo2_tpu_torch.msm.msm import SORT_BLOCK, window_bits_for
 from halo2_tpu_torch.multiopen import BatchVerifier
 from halo2_tpu_torch.ntt import dft_matmul as dm
+from halo2_tpu_torch.ntt.ntt import get_ntt
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
 from halo2_tpu_torch.plonk.parallel_synthesis import default_workers
-from halo2_tpu_torch.plonk.prover import (create_proof,
+from halo2_tpu_torch.plonk.prover import (LARGE_N, create_proof,
                                           create_proof_from_witness,
                                           create_proof_multi, create_witness,
                                           synthesize_witness)
 from halo2_tpu_torch.plonk.verifier import verify_proof, verify_proof_multi
 from halo2_tpu_torch.poly.commitment import Params
+from halo2_tpu_torch.poly.domain import STREAM_NTT_MIN
 from halo2_tpu_torch.utils import build, profiling
 from halo2_tpu_torch.utils.profiling import bound_ms as _bound
 from halo2_tpu_torch.utils.profiling import max_abs_err as _max_err
 from halo2_tpu_torch.utils.profiling import time_cuda as _time_cuda
+from examples import torch_probe_k22 as probe_k22
 from tests.data.torch_golden_circuits import argument_circuit, multi_circuits
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -236,6 +251,10 @@ PATH_CIRCUITS = (("prove", lambda: MulChainCircuit(1), 1, False),
                  ("synth", lambda: BlockMulChainCircuit(1, 1), 1, False))
 # the witness seeds of the multi path's two AllArgsCircuit instances
 MULTI_SEEDS = (5, 6)
+# the large path's rows (2^LARGE_K, MulChainCircuit) and the lane chunks
+# of its streamed extended inverse transform
+LARGE_K = 22
+STREAM_CHUNKS_LOG = 3
 
 
 def _shplonk_sets(cs, proofs: int) -> dict:
@@ -392,12 +411,26 @@ def _butterfly_case(sh, cols):
     return cols, sh["ext_n"] // 2, 1 << ((sh["ext_k"] + 1) // 2)
 
 
-def _k2_butterfly(shs, gen, device) -> dict:
+def _stream_chunks(ext_k: int, chunks_log: int = STREAM_CHUNKS_LOG):
+    """The first stage of each phase of NTT.inverse_streamed_nodiv at
+    2^ext_k, as K2 sees it — (mid, half, rep) of a lane chunk's
+    butterflies — and its mid-twiddle product as K3 sees it, (mid, k)."""
+    n1 = 1 << ((ext_k + 1) // 2)
+    n2 = (1 << ext_k) // n1
+    w1, w2 = max(n1 >> chunks_log, 1), max(n2 >> chunks_log, 1)
+    return {"phase 1": (1, (n2 // 2) * w1, w1),
+            "phase 2": (1, (n1 // 2) * w2, w2), "mid": (1, n2 * w1)}
+
+
+def _k2_butterfly(shs, gen, device, large_ext_k) -> dict:
     F = fr(device)
     worst = 0
     head = _butterfly_case(shs[0], 3)
     others = [(x["path"], _butterfly_case(x, x["horner_lanes"]))
               for x in _other_paths(shs, "ext_n")]
+    chunks = _stream_chunks(large_ext_k)
+    others += [(f"large chunk {ph}", chunks[ph])
+               for ph in ("phase 1", "phase 2")]
     cases = [head] + [c for _, c in others] + [(5, 24, 4), (7, 1, 1),
                                                (1, 1000, 8)]
     for mid, half, rep in cases:
@@ -426,12 +459,14 @@ def _k2_butterfly(shs, gen, device) -> dict:
                   variants[0]["shape"])
 
 
-def _k3_mul_tiled(shs, gen, device) -> dict:
+def _k3_mul_tiled(shs, gen, device, large_ext_k) -> dict:
     F = fr(device)
     worst = 0
     head = (3, shs[0]["ext_n"])
     others = [(x["path"], (x["horner_lanes"], x["ext_n"]))
               for x in _other_paths(shs, "ext_n")]
+    others.append(("large chunk mid twiddle",
+                   _stream_chunks(large_ext_k)["mid"]))
     cases = [head] + [c for _, c in others] + [
         (x["ext_n"] // 4, 4) for x in shs] + [(7, 1000), (1, 1)]
     for mid, kk in cases:
@@ -856,8 +891,11 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
     aff_p, proj_p = _rand_points(n, gen, device)
     aff_q, proj_q = _rand_points(n, gen, device)
     pts = (aff_p, proj_p, aff_q, proj_q, g1.identity((n,), device))
-    entries = [_k1_binop(shs, gen, device), _k2_butterfly(shs, gen, device),
-               _k3_mul_tiled(shs, gen, device), _field_pow(sh, gen, device),
+    large_ext_k = _shapes(LARGE_K, "large", MulChainCircuit(1))["ext_k"]
+    entries = [_k1_binop(shs, gen, device),
+               _k2_butterfly(shs, gen, device, large_ext_k),
+               _k3_mul_tiled(shs, gen, device, large_ext_k),
+               _field_pow(sh, gen, device),
                _field_scan(shs, gen, device),
                _k4_point_op(sh, gen, device, pts),
                _k5_packed(sh, gen, device, pts),
@@ -985,7 +1023,8 @@ def _rejects(pv, vk, instances_list, proof, use_gwc=True) -> bool:
 
 def _drive(name, k, seed, device, circuits, instances_list,
            floor_planner=None, extra=None, family_limits=None,
-           use_gwc=True, after=None) -> dict:
+           use_gwc=True, after=None, offload_lagrange=False,
+           peaks=False, min_counters=None) -> dict:
     """unsafe_setup -> keygen -> create_proof_multi -> verify_proof_multi
     for one or more instances of one circuit, with every launch count set
     to 0 just before and read just after; a proof with one byte flipped
@@ -994,25 +1033,34 @@ def _drive(name, k, seed, device, circuits, instances_list,
     `after(params, vk, pk, proof)`, whose dict joins the path's JSON line
     (with `extra`).  Prints the line and returns the path's launches; fails
     where a family of kernels launched more than `family_limits` gives
-    it."""
+    it, or where a counter of `min_counters` stayed below its least value.
+    With `peaks` every phase's peak allocated and reserved bytes are read
+    at its end (and the device's peak statistics reset there)."""
     torch.cuda.reset_peak_memory_stats(device)
     profiling.reset()
     _reset_counts()                          # the path starts here
-    phases = profiling.PhaseTimes(device)
+    phases = profiling.PhaseTimes(device, peaks=peaks)
     params = Params.unsafe_setup(k, seed=seed, device=device)
     phases("unsafe_setup")
     vk, pk = keygen(params, circuits[0], floor_planner=floor_planner,
                     device=device)
     phases("keygen")
-    prover_phases = profiling.PhaseTimes(device)
+    prover_phases = profiling.PhaseTimes(device, peaks=peaks)
     proof = create_proof_multi(params, pk, circuits, instances_list,
                                seed=seed + 1, floor_planner=floor_planner,
                                use_gwc=use_gwc, device=device,
-                               phases=prover_phases)
+                               phases=prover_phases,
+                               offload_lagrange=offload_lagrange)
     phases("create_proof")
     launches = {**cuda_ops.launch_counts, **cuda_point.launch_counts}
     launches = dict(launches)                # and ends here
     peak = torch.cuda.max_memory_allocated(device)
+    if peaks:
+        # the prover's marks reset the statistics: its own phases hold
+        # its peaks, and the outer "create_proof" entry is dropped
+        del phases.peaks["create_proof"]
+        peak_by_phase = {**phases.peaks, **prover_phases.peaks}
+        peak = max(p["allocated"] for p in peak_by_phase.values())
     families = {fam: sum(launches[c] for c in counters)
                 for fam, counters in FAMILIES.items()}
     counters = dict(profiling.counters)
@@ -1054,7 +1102,15 @@ def _drive(name, k, seed, device, circuits, instances_list,
         if launches[kernel] != counters[per]:
             raise AssertionError(f"{name}: {kernel} made {launches[kernel]} "
                                  f"launches for {counters[per]} {per}")
+    for counter, least in (min_counters or {}).items():
+        if counters.get(counter, 0) < least:
+            raise AssertionError(f"{name}: counter {counter} is "
+                                 f"{counters.get(counter, 0)}, expected at "
+                                 f"least {least}")
     more = after(params, vk, pk, proof) if after else {}
+    if peaks:
+        more["peak_bytes_by_phase"] = {**phases.peaks,
+                                       **prover_phases.peaks}
     cs = vk.cs
     print(json.dumps({name: {
         "k": k, "rows": 1 << k, "usable_rows": cs.usable_rows(1 << k),
@@ -1280,6 +1336,43 @@ def phase_synth(k: int, seed: int, device) -> dict:
                   after=_synth_checks(circuit_of, instances, seed, device))
 
 
+def _large_checks(k: int, device):
+    """`after` of the large path: the identities of
+    examples/torch_probe_k22.py at 2^k on the path's SRS, and the streamed
+    extended inverse transform against the monolithic one at 2^(k+1)."""
+    def run(params, vk, pk, proof):
+        x = probe_k22.random_column(k, device)
+        ntt = get_ntt(k, device)
+        records = [probe_k22.identity_a(ntt, x),
+                   probe_k22.identity_b(params, ntt, x),
+                   probe_k22.identity_c(x)]
+        del x
+        ext = get_ntt(k + 1, device)
+        records.append(probe_k22.streamed_against_monolithic(
+            ext, probe_k22.random_column(k + 1, device), STREAM_CHUNKS_LOG))
+        ext.drop_tables()
+        for rec in records:
+            if not rec["ok"]:
+                raise AssertionError(f"large: identity {rec['identity']} "
+                                     f"fails at 2^{k}")
+        return {"identities": records}
+    return run
+
+
+def phase_large(k: int, seed: int, device) -> dict:
+    """MulChainCircuit at 2^k rows through the large-domain sequence, with
+    the offloads, then _large_checks."""
+    circuit = MulChainCircuit(MulChainCircuit.steps_for(k), a=3, b=5)
+    return _drive("large", k, seed, device, [circuit],
+                  [[[circuit.expected_out()]]],
+                  extra={"rows_assigned": 2 * circuit.steps,
+                         "offload_lagrange": True, "large_n": LARGE_N,
+                         "stream_ntt_min": STREAM_NTT_MIN},
+                  after=_large_checks(k, device), offload_lagrange=True,
+                  peaks=True, min_counters={"ntt_streamed_calls": 1,
+                                            "lagrange_offloads": 2})
+
+
 def _load_dft_probe():
     spec = importlib.util.spec_from_file_location("torch_mxu_dft_probe",
                                                   DFT_PROBE)
@@ -1374,7 +1467,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
-ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,dft"
+ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,large,dft"
 
 
 def main(argv=None) -> int:
@@ -1408,6 +1501,8 @@ def main(argv=None) -> int:
         paths["multi"] = phase_multi(args.k, args.seed, device)
     if "synth" in phases:
         paths["synth"] = phase_synth(args.k, args.seed, device)
+    if "large" in phases:
+        paths["large"] = phase_large(LARGE_K, args.seed, device)
     if "dft" in phases:
         entry, paths["dft"] = phase_dft(device, out["smi"])
         entries.append(entry)

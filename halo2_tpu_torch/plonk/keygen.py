@@ -31,6 +31,7 @@ from halo2_tpu_torch.plonk.error import NotEnoughRowsAvailable
 from halo2_tpu_torch.plonk.evaluator import Evaluator
 from halo2_tpu_torch.poly.arith import PointPowers
 from halo2_tpu_torch.poly.domain import EvaluationDomain
+from halo2_tpu_torch.utils import offload, profiling
 from halo2_tpu_torch.utils.device import require_device
 
 P = FR_MODULUS
@@ -205,15 +206,49 @@ class ProvingKey:
         self.l_last_coeff = l_last_coeff
         self.l_blind_coeff = l_blind_coeff
         self.ev = Evaluator(self)
+        self._forms_copy = None           # an offload in flight
+        self._forms_on_host = False
+
+    # -- device memory relief at large k (keygen.py:199-234) --------------
+    def offload_lagrange_forms(self):
+        """Start moving the Lagrange forms — the fixed columns and the
+        permutation's sigmas, 256 MiB a column at k = 22 — to host memory:
+        a proof reads them last in its grand products.  join_offloads
+        frees their device memory, onload_lagrange_forms brings them
+        back (the prover does at the start of every proof)."""
+        if self._forms_on_host or self._forms_copy is not None:
+            return
+        profiling.incr("lagrange_offloads")
+        self._forms_copy = offload.HostCopy(
+            [self.fixed_lagrange, self.permutation_pk.sigmas_lagrange])
+
+    def join_offloads(self):
+        """Finish a pending offload: the device copies are released."""
+        if self._forms_copy is not None:
+            (self.fixed_lagrange,
+             self.permutation_pk.sigmas_lagrange) = self._forms_copy.join()
+            self._forms_copy = None
+            self._forms_on_host = True
+
+    def onload_lagrange_forms(self):
+        self.join_offloads()
+        if self._forms_on_host:
+            dev = self.vk.domain.device
+            self.fixed_lagrange = offload.onload(self.fixed_lagrange, dev)
+            self.permutation_pk.sigmas_lagrange = offload.onload(
+                self.permutation_pk.sigmas_lagrange, dev)
+            self._forms_on_host = False
 
 
-def keygen(params, circuit, floor_planner=None, device="cuda"):
+def keygen(params, circuit, floor_planner=None, device="cuda", phases=None):
     """keygen_vk + keygen_pk in one pass (keygen.rs:233-455).  `device`
-    must be the one `params` lives on."""
+    must be the one `params` lives on; `phases` is an optional
+    utils.profiling.PhaseTimes that receives per-phase seconds."""
     device = require_device(device)
     if params.device != device:
         raise ValueError(f"params are on {params.device}, keygen was asked "
                          f"for {device}")
+    _pm = profiling.phase_marker(device, phases)
     cs = ConstraintSystem()
     config = circuit.configure(cs)
     # chunk lookups and shuffles by degree (circuit_configure,
@@ -239,6 +274,7 @@ def keygen(params, circuit, floor_planner=None, device="cuda"):
     if cs.num_selectors:
         combos = cs.compress_selectors(assembly.selectors)
         assembly.fixed.extend(combos)
+    _pm("synthesize")
 
     # fixed polys
     if cs.num_fixed_columns:
@@ -252,7 +288,9 @@ def keygen(params, circuit, floor_planner=None, device="cuda"):
         [fixed_lagrange[:, i, :] for i in range(fixed_lagrange.shape[1])],
         base="lagrange")
 
+    _pm("fixed iNTT+commit")
     perm_vk, perm_pk = perm_mod.build_keys(params, domain, assembly.perm)
+    _pm("permutation")
 
     vk = VerifyingKey(domain, cs, fixed_commitments, perm_vk, k)
 
@@ -263,6 +301,7 @@ def keygen(params, circuit, floor_planner=None, device="cuda"):
 
     pk = ProvingKey(vk, fixed_lagrange, fixed_coeff, perm_pk,
                     l0, l_last, l_blind, config=config)
+    _pm("l polys+evaluator")
     return vk, pk
 
 

@@ -23,6 +23,17 @@ Several instances of one circuit go into one proof (create_proof_multi):
 steps 2-7 and 10 run per proof, in the reference's transcript order, and
 the h numerator is chained across proofs before one quotient.
 
+From n >= LARGE_N rows on, the reference's large-domain sequence
+(prover.py:361-363, 521-536, 554-599, 608-612, 627-635 of halo2_tpu):
+the step-7 stacks are transformed proof by proof, each handed over to its
+iNTT; with offload_lagrange the key's Lagrange forms leave the device
+after the grand products and the Lagrange SRS after the vanishing commit,
+both joined before evaluate_h; and the forward extended twiddle tables
+are dropped after evaluate_h from extended_n >= STREAM_NTT_MIN on.  At
+every size the inverse extended tables go after the quotient's transform
+and the challenges' power tables at the proof's end, so that nothing a
+proof builds after its peak sits in the next proof's.
+
 Randomness is injectable (`seed`) so proofs are reproducible in tests —
 the reference uses OsRng (prover.rs:286); byte-level determinism here is a
 feature for differential testing.
@@ -49,12 +60,17 @@ from halo2_tpu_torch.plonk.error import (InstanceTooLarge,
 from halo2_tpu_torch.plonk.expr_eval import ExprCtx
 from halo2_tpu_torch.plonk.range_check import fill_and_sort
 from halo2_tpu_torch.plonk.vanishing import VanishingProver
-from halo2_tpu_torch.poly.arith import eval_poly_batch
+from halo2_tpu_torch.poly import domain as domain_mod
+from halo2_tpu_torch.poly.arith import PointPowers, eval_poly_batch
 from halo2_tpu_torch.transcript import Blake2bWrite
 from halo2_tpu_torch.utils.device import require_device
 from halo2_tpu_torch.utils.profiling import phase_marker
 
 P = FR_MODULUS
+
+# from this many rows on, the prover runs the large-domain memory sequence
+# (the reference's n >= 2^22 gates)
+LARGE_N = 1 << 22
 
 
 class WitnessCollection(Assignment):
@@ -326,19 +342,22 @@ def create_witness(pk, circuit, instances, path: str, floor_planner=None):
 
 def create_proof_from_witness(params, pk, instances, path: str,
                               seed: int | None = None, use_gwc: bool = True,
-                              device="cuda", phases=None) -> bytes:
+                              device="cuda", phases=None,
+                              offload_lagrange: bool = False) -> bytes:
     """Prove from a witness file (create_witness), skipping synthesis: the
     same bytes as create_proof with the same seed."""
     from halo2_tpu_torch.io.serialization import load_witness
     witness_advice = load_witness(path, require_device(device))
     return create_proof(params, pk, None, instances, seed=seed,
                         use_gwc=use_gwc, device=device, phases=phases,
-                        witness_advice=witness_advice)
+                        witness_advice=witness_advice,
+                        offload_lagrange=offload_lagrange)
 
 
 def create_proof(params, pk, circuit, instances, seed: int | None = None,
                  floor_planner=None, use_gwc: bool = True, device="cuda",
-                 phases=None, witness_advice=None) -> bytes:
+                 phases=None, witness_advice=None,
+                 offload_lagrange: bool = False) -> bytes:
     """Prove one circuit instance. instances: list of instance columns
     (each a list of ints, length <= usable rows). Returns proof bytes.
     witness_advice: optional ((16, C, n) Montgomery Lagrange advice,
@@ -348,7 +367,8 @@ def create_proof(params, pk, circuit, instances, seed: int | None = None,
         params, pk, [circuit], [instances], seed=seed,
         floor_planner=floor_planner, use_gwc=use_gwc, device=device,
         phases=phases,
-        witness_advice=None if witness_advice is None else [witness_advice])
+        witness_advice=None if witness_advice is None else [witness_advice],
+        offload_lagrange=offload_lagrange)
 
 
 def _cat(tensors):
@@ -366,7 +386,8 @@ def _split(stack, counts):
 def create_proof_multi(params, pk, circuits, instances_list,
                        seed: int | None = None, floor_planner=None,
                        use_gwc: bool = True, device="cuda", phases=None,
-                       witness_advice=None) -> bytes:
+                       witness_advice=None,
+                       offload_lagrange: bool = False) -> bytes:
     """Prove several instances of one circuit in one proof (the
     reference's create_proof over &[ConcreteCircuit], prover.rs:206-850):
     every per-proof commitment and evaluation in the reference transcript
@@ -374,7 +395,11 @@ def create_proof_multi(params, pk, circuits, instances_list,
     must be the one `params` and `pk` live on; `phases` is an optional
     utils.profiling.PhaseTimes that receives per-phase seconds; use_gwc
     False opens with SHPLONK.  witness_advice: optional list, per proof,
-    of what io.load_witness returns, instead of synthesis."""
+    of what io.load_witness returns, instead of synthesis.
+    offload_lagrange: move the Lagrange SRS (and, from n >= LARGE_N on, the
+    key's Lagrange forms) to host memory once the proof is done with them
+    (the reference's HALO2_TPU_OFFLOAD_SRS=1); the next proof brings them
+    back.  The proof bytes do not change."""
     device = require_device(device)
     if params.device != device:
         raise ValueError(f"params are on {params.device}, create_proof was "
@@ -395,6 +420,11 @@ def create_proof_multi(params, pk, circuits, instances_list,
     n_adv, n_inst = cs.num_advice_columns, cs.num_instance_columns
 
     _pm = phase_marker(device, phases)
+    large = n >= LARGE_N
+    # what a prior proof offloaded comes back (the SRS's upload is
+    # asynchronous and overlaps the synthesis below)
+    pk.onload_lagrange_forms()
+    params._lagrange_dev()
     # 1. vk hash + every proof's instance commitments, in one batch
     # (absorbed as common points)
     vk.hash_into(transcript)
@@ -530,33 +560,56 @@ def create_proof_multi(params, pk, circuits, instances_list,
     del lag_ctxs, lookup_data, shuffle_data
 
     _pm("grand products/sums")
+    if offload_lagrange and large:
+        # the key's Lagrange forms are dead from here on (256 MiB a column
+        # at k = 22)
+        pk.offload_lagrange_forms()
     # 6. vanishing random poly -> y
     vanishing = VanishingProver(params, domain, rng)
     transcript.write_point(vanishing.random_commitment)
     y = transcript.squeeze_challenge()
 
     _pm("vanishing commit")
+    if offload_lagrange:
+        # every Lagrange-basis commitment is made: the SRS's Lagrange basis
+        # (512 MiB at k = 22) can leave the device
+        params.offload_lagrange()
     # 7. coeff forms: every column of one kind, of every proof, in one
-    # batched iNTT
+    # batched iNTT; from LARGE_N on proof by proof, each stack handed over
+    # to its transform (one concatenation would double the stacks)
     def to_coeff(per_proof):
-        """per proof a (16, C_i, n) stack -> per proof its coeff form."""
+        """per proof a (16, C_i, n) stack, taken out of the list -> per
+        proof its coeff form."""
         counts = [t.shape[1] for t in per_proof]
+        if large:
+            out = []
+            for p_i in proofs:
+                box, per_proof[p_i] = [per_proof[p_i]], None
+                out.append(domain.ntt.inverse(box) if counts[p_i]
+                           else box[0])
+            return out
         if not sum(counts):
             return per_proof
         return _split(domain.ntt.inverse(_cat(per_proof)), counts)
 
     def stacks(per_proof_lists):
-        return [torch.stack(cols, dim=1) if cols else F.zeros((0, n))
-                for cols in per_proof_lists]
+        """per proof a list of (16, n) columns -> per proof one stack; the
+        columns live on in the stacks only."""
+        out = []
+        for cols in per_proof_lists:
+            out.append(torch.stack(cols, dim=1) if cols else F.zeros((0, n)))
+            cols.clear()
+        return out
 
+    sets_of = [[len(zset) for zset in lzs] for lzs in lookup_zs]
+    del lookup_zs
     advice_coeff = to_coeff(advice_lagrange)
     instance_coeff = to_coeff(instance_lagrange)
     perm_z_stack = to_coeff(stacks(perm_zs))
     lookup_m_stack = to_coeff(stacks(lookup_ms))
     lookup_z_stack = to_coeff(stacks(lookup_zs_flat))
     shuffle_z_stack = to_coeff(stacks(shuffle_zs))
-    sets_of = [[len(zset) for zset in lzs] for lzs in lookup_zs]
-    del advice_lagrange, instance_lagrange, perm_zs, lookup_ms, lookup_zs
+    del advice_lagrange, instance_lagrange, perm_zs, lookup_ms
     del lookup_zs_flat, shuffle_zs
     perm_z_coeffs = [list(s.unbind(1)) for s in perm_z_stack]
     lookup_m_coeffs = [list(s.unbind(1)) for s in lookup_m_stack]
@@ -568,6 +621,11 @@ def create_proof_multi(params, pk, circuits, instances_list,
                                 for c in sets_of[p_i]])
 
     _pm("iNTTs")
+    if large:
+        # the offloads' device memory is freed before the extended-domain
+        # working set needs it
+        pk.join_offloads()
+        params.join_offload()
     # 8. h evaluation, the fold chained across proofs
     # (evaluation.rs:900-1000)
     h_ext = None
@@ -578,9 +636,17 @@ def create_proof_multi(params, pk, circuits, instances_list,
             theta, beta, gamma, y, value_init=h_ext)
 
     _pm("evaluate_h")
-    # 9. vanishing construct -> x
-    h_pieces, h_commitments = vanishing.construct(h_ext)
-    del h_ext
+    if domain.extended_n >= domain_mod.STREAM_NTT_MIN:
+        # the forward extended tables (a 512 MiB mid table at 2^23) are
+        # dead until the next proof's coset extensions
+        domain.ntt_ext.drop_tables(inverse=False)
+    # 9. vanishing construct -> x; the h values handed over
+    box, h_ext = [h_ext], None
+    h_pieces, h_commitments = vanishing.construct(box)
+    # the inverse extended tables serve this one transform: built after
+    # the evaluate_h peak, kept they would sit in the next proof's (256 MiB
+    # at 2^22)
+    domain.ntt_ext.drop_tables(inverse=True)
     for com in h_commitments:
         transcript.write_point(com)
     x = transcript.squeeze_challenge()
@@ -673,6 +739,8 @@ def create_proof_multi(params, pk, circuits, instances_list,
     queries.append(ProverQuery(x, 0, vanishing.random_poly))
 
     (gwc if use_gwc else shplonk).create_proof(params, transcript, queries)
+    # this proof's challenges are never drawn again: their power tables go
+    PointPowers.clear()
     _pm("multiopen")
     return transcript.finalize()
 

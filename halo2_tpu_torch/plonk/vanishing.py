@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.fields.limbs import N_LIMBS
+from halo2_tpu_torch.ntt.ntt import take
 from halo2_tpu_torch.poly.arith import eval_poly
 from halo2_tpu_torch.poly.domain import Polynomial
 
@@ -52,9 +53,13 @@ class VanishingProver:
         return F.add(lo, F.mul(hi, F.encode_scalar(pow(2, 253, P))))
 
     def construct(self, h_ext):
-        """h numerator on extended coset -> (pieces (16, qd, n), commitments)."""
+        """h numerator on extended coset -> (pieces (16, qd, n), commitments).
+        h_ext: the (16, ext_n) values, or a one-element list handing them
+        over, so that they are let go once divided."""
         domain = self.domain
+        h_ext = take(h_ext)
         h = domain.divide_by_vanishing_poly(Polynomial(h_ext, "extended"))
+        del h_ext
         h_coeff = domain.extended_to_coeff(h)                # (16, n*qd)
         qd = domain.quotient_poly_degree
         pieces = h_coeff.reshape(N_LIMBS, qd, domain.n)

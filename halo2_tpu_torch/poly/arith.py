@@ -17,6 +17,7 @@ import torch
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS, fr
 from halo2_tpu_torch.fields.limbs import (LIMB_BITS, MASK, N_LIMBS,
                                           int_to_limbs_np, to_tensor)
+from halo2_tpu_torch.ntt.ntt import powers_dev
 from halo2_tpu_torch.utils import profiling
 
 _BLOCK = 4096  # 4096 * (2^16-1) < 2^28: safe accumulation width
@@ -45,7 +46,10 @@ def field_sum(a):
         if pad:
             a = torch.nn.functional.pad(a, (0, pad))
         blocks = a.reshape(a.shape[:-1] + ((n + pad) // c, c))
-        a = _normalize_redundant(blocks.sum(dim=-1, dtype=torch.int64))
+        # int32 sums (< 2^28): an int64 sum would first copy the whole
+        # input at twice its size
+        a = _normalize_redundant(
+            blocks.sum(dim=-1, dtype=torch.int32).to(torch.int64))
     return a[..., 0]
 
 
@@ -92,16 +96,14 @@ class PointPowers:
 
     @staticmethod
     def _build(z: int, n: int, device):
-        F = fr(device)
-        tab = F.ones((1,))
-        cur = F.encode_scalar(z)[:, None]            # z^m, m = 1
-        m = 1
-        while m < n:
-            step = min(m, n - m)
-            tab = torch.cat([tab, F.mul(tab[:, :step], cur)], dim=1)
-            cur = F.mul(cur, cur)                    # z^{2m}
-            m += step
-        return tab
+        return powers_dev(fr(device), z, n)
+
+    @classmethod
+    def clear(cls):
+        """Drop every table: a proof's challenges are never drawn again,
+        so the prover lets its tables go when it is done (at 2^22 each is
+        256 MiB; kept, they would sit in the next proof's peak)."""
+        cls._cache.clear()
 
 
 def _dot(coeffs, powers):

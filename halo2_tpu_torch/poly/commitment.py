@@ -13,6 +13,10 @@ Analogue of halo2_proofs/src/poly/commitment.rs:
   * `write`/`read` reproduce the reference Params wire format (k LE u32,
     compressed g points, compressed g_lagrange, length-prefixed s_g2 bytes —
     commitment.rs:241-294) so SRS files interoperate.
+  * `offload_lagrange` / `join_offload` move the Lagrange basis to host
+    memory between a large proof's last Lagrange commitment and its
+    extended-domain phases; every reader of `g_lagrange` brings it back
+    (`_lagrange_dev`).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from halo2_tpu_torch.msm.msm import msm_many
 from halo2_tpu_torch.ntt.ntt import get_ntt
 from halo2_tpu_torch.pairing import bn254 as pairing
 from halo2_tpu_torch.transcript.blake2b import point_to_bytes
+from halo2_tpu_torch.utils import offload, profiling
 from halo2_tpu_torch.utils.device import require_device
 
 Q = pairing.Q
@@ -82,9 +87,43 @@ class Params:
         self.k = k
         self.n = 1 << k
         self.g = g_dev                    # (2, 16, n) Montgomery affine
-        self.g_lagrange = g_lagrange_dev  # (2, 16, n)
+        self._g_lagrange = g_lagrange_dev  # (2, 16, n), see g_lagrange
+        self._lagrange_copy = None        # an offload in flight
+        self._lagrange_on_host = False
         self.s_g2 = s_g2                  # host G2 point (FQ2 pair)
         self.device = g_dev.device
+
+    @property
+    def g_lagrange(self):
+        """The Lagrange basis, (2, 16, n) on the device; brought back
+        first if it was offloaded."""
+        return self._lagrange_dev()
+
+    # -- device memory relief at large k (commitment.py:188-221) ----------
+    def offload_lagrange(self):
+        """Start moving the Lagrange basis to host memory (128 bytes a
+        point, 512 MiB at k = 22); its device memory is freed by
+        join_offload, and the next reader of g_lagrange brings it back.
+        The prover calls this once its last Lagrange-basis commitment is
+        made (create_proof(offload_lagrange=True))."""
+        if self._lagrange_on_host or self._lagrange_copy is not None:
+            return
+        profiling.incr("lagrange_offloads")
+        self._lagrange_copy = offload.HostCopy([self._g_lagrange])
+
+    def join_offload(self):
+        """Finish a pending offload: the device copy is released."""
+        if self._lagrange_copy is not None:
+            self._g_lagrange, = self._lagrange_copy.join()
+            self._lagrange_copy = None
+            self._lagrange_on_host = True
+
+    def _lagrange_dev(self):
+        self.join_offload()
+        if self._lagrange_on_host:
+            self._g_lagrange = offload.onload(self._g_lagrange, self.device)
+            self._lagrange_on_host = False
+        return self._g_lagrange
 
     # -- setup ----------------------------------------------------------
     @classmethod

@@ -14,7 +14,6 @@ Bases (mirroring poly.rs:37-64):
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import torch
@@ -25,6 +24,10 @@ from halo2_tpu_torch.fields.limbs import N_LIMBS, ints_to_limbs_np, to_tensor
 from halo2_tpu_torch.ntt.ntt import get_ntt
 
 P = FR_MODULUS
+
+# extended domains from this size on take the streamed inverse transform
+# in extended_to_coeff (the reference's HALO2_TPU_STREAM_NTT_MIN default)
+STREAM_NTT_MIN = 1 << 23
 
 
 @dataclass
@@ -130,29 +133,28 @@ class EvaluationDomain:
     def _zeta_tile(self, z: int, length: int, scale: int = 1):
         """(16, length) tile of scale * [1, z, z^2, 1, z, ...]: the table
         of the into-coset / out-of-coset products, shared by every column
-        they are applied to."""
-        pat = [scale % P, scale * z % P, scale * z * z % P]
-        reps = -(-length // 3)
-        vals = (pat * reps)[:length]
-        return to_tensor(
-            ints_to_limbs_np([self.F.to_mont_int(v) for v in vals]),
+        they are applied to.  Made on the device from its three words at
+        each use: at 2^23 a cached tile would hold 512 MiB between
+        proofs."""
+        pat = to_tensor(ints_to_limbs_np(
+            [self.F.to_mont_int(scale * z ** i % P) for i in range(3)]),
             self.device)
+        return pat.repeat(1, -(-length // 3))[:, :length].contiguous()
 
-    @functools.cached_property
     def _zeta_pattern_n(self):
         return self._zeta_tile(self.g_coset, self.n)
 
-    @functools.cached_property
     def _zeta_inv_pattern(self):
         """zeta^{-i mod 3} / extended_n over the quotient's coefficients:
-        the 1/extended_n divisor of the inverse transform is folded in."""
+        the 1/extended_n divisor of the inverse transform is folded in
+        (domain.py:251-266 of the reference)."""
         return self._zeta_tile(self.g_coset_inv,
                                self.n * self.quotient_poly_degree,
                                scale=self.ntt_ext.n_inv)
 
-    @functools.cached_property
     def _t_inv_small(self):
-        """t_evaluations^{-1}: one period, 2^(ext_k-k) values."""
+        """t_evaluations^{-1}: one period, 2^(ext_k-k) values (made at each
+        use: a domain keeps no device state between proofs)."""
         return to_tensor(ints_to_limbs_np(
             [self.F.to_mont_int(v) for v in self.t_evaluations_inv]),
             self.device)
@@ -179,21 +181,30 @@ class EvaluationDomain:
 
     def coeff_to_extended_values(self, values):
         """(16, *mid, n) coefficient columns -> (16, *mid, extended_n)."""
-        shifted = cuda_ops.mul_tiled(self.F, values.contiguous(),
-                                     self._zeta_pattern_n)
-        padded = torch.zeros(values.shape[:-1] + (self.extended_n,),
-                             dtype=torch.int32, device=values.device)
-        padded[..., : self.n] = shifted
-        return self.ntt_ext.forward(padded)
+        box = [torch.zeros(values.shape[:-1] + (self.extended_n,),
+                           dtype=torch.int32, device=values.device)]
+        box[0][..., : self.n] = cuda_ops.mul_tiled(
+            self.F, values.contiguous(), self._zeta_pattern_n())
+        return self.ntt_ext.forward(box)        # the padded copy handed over
 
     def extended_to_coeff(self, p: Polynomial) -> torch.Tensor:
         """Extended evals -> quotient coefficients, truncated to
-        n * quotient_poly_degree (domain.rs:328-350). Returns raw (16, t)."""
+        n * quotient_poly_degree (domain.rs:328-350). Returns raw (16, t).
+
+        CONSUMES p.values (p is left without values), as the reference's
+        domain.py:223 does: the extended column is let go inside the
+        transform.  From extended_n >= STREAM_NTT_MIN on, the inverse
+        transform runs in lane chunks (NTT.inverse_streamed_nodiv), so its
+        live memory is input + output + mid table + one chunk."""
         self._expect(p, "extended", self.extended_n)
+        box, p.values = [p.values], None
+        if self.extended_n >= STREAM_NTT_MIN:
+            coeffs = self.ntt_ext.inverse_streamed_nodiv(box)
+        else:
+            coeffs = self.ntt_ext.inverse_nodiv(box)
         tail = self.n * self.quotient_poly_degree
-        coeffs = self.ntt_ext.inverse_nodiv(p.values)
         return cuda_ops.mul_tiled(self.F, coeffs[:, :tail].contiguous(),
-                                  self._zeta_inv_pattern)
+                                  self._zeta_inv_pattern())
 
     def divide_by_vanishing_poly(self, p: Polynomial) -> Polynomial:
         self._expect(p, "extended", self.extended_n)
@@ -202,7 +213,7 @@ class EvaluationDomain:
         period = len(self.t_evaluations_inv)
         out = cuda_ops.mul_tiled(
             self.F, p.values.reshape(N_LIMBS, self.extended_n // period,
-                                     period).contiguous(), self._t_inv_small)
+                                     period).contiguous(), self._t_inv_small())
         return Polynomial(out.reshape(N_LIMBS, self.extended_n), "extended")
 
     def rotate_extended(self, values, rotation: int):

@@ -55,19 +55,32 @@ def reset():
 
 class PhaseTimes:
     """pm = PhaseTimes(device); ...; pm("phase") records the seconds since
-    the previous mark under that name (summed if the name repeats)."""
+    the previous mark under that name (summed if the name repeats).  With
+    peaks=True on a CUDA device it also records, under `peaks`, the peak
+    allocated and reserved bytes since the previous mark (the device's
+    peak statistics are reset at every mark)."""
 
-    def __init__(self, device):
+    def __init__(self, device, peaks: bool = False):
         self.device = torch.device(device)
         self.seconds: dict = {}
+        self.peaks: dict = {}
+        self._peaks = peaks and self.device.type == "cuda"
         self._t = self._now()
 
     def _now(self) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            if self._peaks:
+                torch.cuda.reset_peak_memory_stats(self.device)
         return time.perf_counter()
 
     def __call__(self, name: str):
+        if self._peaks:
+            torch.cuda.synchronize(self.device)
+            got = {"allocated": torch.cuda.max_memory_allocated(self.device),
+                   "reserved": torch.cuda.max_memory_reserved(self.device)}
+            was = self.peaks.get(name, got)
+            self.peaks[name] = {key: max(got[key], was[key]) for key in got}
         now = self._now()
         self.seconds[name] = self.seconds.get(name, 0.0) + (now - self._t)
         self._t = now

@@ -31,7 +31,10 @@ SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
            "examples.torch_two_chip_example",
            "examples.torch_lookup_shuffle_example",
            "examples.torch_circuit_layout", "examples.torch_cost_model",
-           "examples.torch_fork_cost", "examples.torch_warm_proofs"]
+           "examples.torch_fork_cost", "examples.torch_warm_proofs",
+           "examples.torch_kernel_audit", "examples.torch_launch_cost",
+           "examples.torch_probe_k22", "examples.torch_bench_prover",
+           "examples.torch_bench_keygen"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys
@@ -66,7 +69,8 @@ def test_package_has_its_modules():
                  "halo2_tpu_torch.plonk.parallel_synthesis",
                  "halo2_tpu_torch.dev", "halo2_tpu_torch.dev.mock",
                  "halo2_tpu_torch.dev.cost", "halo2_tpu_torch.dev.gates",
-                 "halo2_tpu_torch.dev.graph"):
+                 "halo2_tpu_torch.dev.graph",
+                 "halo2_tpu_torch.utils.offload"):
         assert name in MODULES
 
 
@@ -95,6 +99,29 @@ def test_sources_do_not_name_jax():
         assert "import jax" not in text, path
         assert "from halo2_tpu." not in text, path
         assert "import halo2_tpu\n" not in text, path
+
+
+def test_every_port_example_is_checked():
+    """Each examples/torch_*.py is among SCRIPTS, so the two checks above
+    cover every script of the port beside the package."""
+    found = sorted("examples." + f[:-3]
+                   for f in os.listdir(os.path.join(ROOT, "examples"))
+                   if f.startswith("torch_") and f.endswith(".py"))
+    assert [m for m in found if m not in SCRIPTS] == []
+
+
+# the modules of the large-domain path: their thresholds and switches are
+# module constants and keywords, never the environment
+LARGE_PATH_MODULES = ("ntt/ntt.py", "poly/domain.py", "poly/commitment.py",
+                      "plonk/keygen.py", "plonk/prover.py",
+                      "plonk/vanishing.py", "utils/offload.py")
+
+
+def test_large_path_reads_no_environment():
+    for rel in LARGE_PATH_MODULES:
+        with open(os.path.join(ROOT, "halo2_tpu_torch", rel)) as fh:
+            text = fh.read()
+        assert "environ" not in text and "getenv" not in text, rel
 
 
 _IMPORT_BUILDS_NOTHING = """
