@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--k K]
                           [--phases env,kernels,golden,prove,args,multi,synth,
-                                    large,dft]
+                                    large,mesh,dft]
 
 Builds the CUDA kernels from halo2_tpu_torch/csrc and the host codec from
 halo2_tpu_torch/native, then:
@@ -68,6 +68,22 @@ halo2_tpu_torch/native, then:
            round trip, KZG, Kate) and the streamed extended inverse
            transform against the monolithic one at 2^23, equal
            word for word, each with its peak bytes;
+  mesh     AllArgsCircuit at 2^k rows over a mesh of 4 shards placed on
+           cuda:(i % device_count) (params.use_mesh: the sharded MSMs, the
+           four-step iNTTs, the row-sharded h evaluator, the quotient's
+           transform over the mesh): first DistNTT at the args path's
+           extended size (forward, inverse, inverse_nodiv), the sharded MSM
+           over 2^16 points (full and 16-bit scalars) and dist_roll on
+           every (q, r) branch, each against its single-device counterpart
+           exactly; then setup, keygen and the sharded proof with the
+           launch counts set to 0 just before and read just after, every
+           field, transform and point wrapper at each shape it was called
+           with there held to its plain version, the proof's bytes equal
+           to the single-device proof of the same seed, the port's
+           verifier and BatchVerifier accepting it and a tampered copy
+           rejected; seconds by phase of the sharded (cold and warm) and
+           the single proof, peak allocated bytes per device, and a line
+           saying whether shard copies crossed cards;
   dft      the tensor-core DFT probe (examples/torch_mxu_dft_probe.py) at
            m = 16 and 64, B = 2^17: dft_matmul with the launch counts set
            to 0 just before and read just after, its output against the host
@@ -106,9 +122,11 @@ from halo2_tpu_torch.fields.bn254 import FR_MODULUS as P, fq, fr
 from halo2_tpu_torch.fields.limbs import N_LIMBS, limbs_to_ints
 from halo2_tpu_torch.msm import msm
 from halo2_tpu_torch.msm import sorted as msm_sorted
-from halo2_tpu_torch.msm.msm import SORT_BLOCK, window_bits_for
+from halo2_tpu_torch.msm.distributed import msm_many_sharded
+from halo2_tpu_torch.msm.msm import SORT_BLOCK, msm_many, window_bits_for
 from halo2_tpu_torch.multiopen import BatchVerifier
 from halo2_tpu_torch.ntt import dft_matmul as dm
+from halo2_tpu_torch.ntt.distributed import DistNTT
 from halo2_tpu_torch.ntt.ntt import get_ntt
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
@@ -123,6 +141,7 @@ from halo2_tpu_torch.poly.domain import STREAM_NTT_MIN
 from halo2_tpu_torch.utils import build, profiling
 from halo2_tpu_torch.utils.profiling import bound_ms as _bound
 from halo2_tpu_torch.utils.profiling import max_abs_err as _max_err
+from halo2_tpu_torch.utils.mesh import Mesh, dist_roll
 from halo2_tpu_torch.utils.profiling import time_cuda as _time_cuda
 from examples import torch_probe_k22 as probe_k22
 from tests.data.torch_golden_circuits import argument_circuit, multi_circuits
@@ -1460,6 +1479,319 @@ def phase_dft(device, smi: str):
     return entry, launches
 
 
+# the mesh path: D logical shards placed on cuda:(i % device_count), the
+# k-row AllArgsCircuit proved with params.use_mesh
+MESH_SHARDS = 4
+
+
+def _card_mesh() -> Mesh:
+    count = torch.cuda.device_count()
+    return Mesh([torch.device("cuda", i % count)
+                 for i in range(MESH_SHARDS)])
+
+
+# the wrappers whose shapes the mesh changes (shard shapes, the local
+# transforms of the four-step, the tree over the shards' window totals):
+# each call on the mesh path records its shapes; the grand products' pow
+# and scan and the setup's ladder run whole on the first device, at the
+# args path's shapes
+MESH_RECORDED = (
+    (cuda_ops, "binop", lambda op, field, a, b:
+     (op, field.name, tuple(a.shape), tuple(b.shape))),
+    (cuda_ops, "butterfly", lambda field, lo, hi, tw, rep=1:
+     (tuple(lo.shape), tuple(tw.shape), rep)),
+    (cuda_ops, "mul_tiled", lambda field, a, t:
+     (tuple(a.shape), tuple(t.shape))),
+    (cuda_point, "point_op", lambda op, coords:
+     (op, len(coords), tuple(coords[0].shape))),
+    (cuda_point, "msm_scan", lambda rows, order, key, block, nb:
+     (tuple(order.shape), block, nb)),
+    (cuda_point, "horner", lambda totals, c_bits, tail_doubles=0:
+     (tuple(totals[0].shape), c_bits, tail_doubles)))
+MESH_KERNEL_NAME = {"binop": "field_binop", "butterfly": "ntt_butterfly",
+                    "mul_tiled": "mul_tiled", "point_op": "point_op",
+                    "msm_scan": "msm_scan", "horner": "point_horner"}
+
+
+def _recorded(fn, record: dict):
+    """fn() with each MESH_RECORDED wrapper adding the key of every call
+    to record[wrapper name] (a set); the wrappers are restored after."""
+    saved = []
+    for mod, name, key in MESH_RECORDED:
+        orig = getattr(mod, name)
+        seen = record.setdefault(name, set())
+
+        def wrapped(*args, _orig=orig, _key=key, _seen=seen, **kw):
+            _seen.add(_key(*args, **kw))
+            return _orig(*args, **kw)
+        saved.append((mod, name, orig))
+        setattr(mod, name, wrapped)
+    try:
+        return fn()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def _replay(record: dict, gen, device) -> dict:
+    """Each recorded call shape again on random inputs, kernel against
+    plain version: {wrapper: {"shapes": n, "max_abs_err": worst}}."""
+    Fr_, Fq_ = fr(device), fq(device)
+    fields = {"Fr": Fr_, "Fq": Fq_}
+    out = {}
+
+    def rnd(F, shape):
+        return _rand_field(F, shape, gen)
+
+    for name, keys in record.items():
+        worst = 0
+        for key in sorted(keys, key=str):
+            if name == "binop":
+                op, fname, sa, sb = key
+                if 0 in sa or 0 in sb:
+                    continue
+                F = fields[fname]
+                a, b = rnd(F, sa[1:]), rnd(F, sb[1:])
+                err = _max_err(cuda_ops.binop(op, F, a, b),
+                               cuda_ops.plain_op(op, F, a, b))
+            elif name == "butterfly":
+                (_, mid, half), (_, k_), rep = key
+                x = rnd(Fr_, (mid, 2, half))
+                tw = rnd(Fr_, (k_,))
+                lo, hi = x[:, :, 0, :], x[:, :, 1, :]
+                err = _max_err(cuda_ops.butterfly(Fr_, lo, hi, tw, rep),
+                               cuda_ops.plain_butterfly(Fr_, lo, hi, tw,
+                                                        rep))
+            elif name == "mul_tiled":
+                sa, st = key
+                a, t = rnd(Fr_, sa[1:]), rnd(Fr_, st[1:])
+                mid = a.numel() // (N_LIMBS * st[1])
+                err = _max_err(cuda_ops.mul_tiled(Fr_, a, t),
+                               cuda_ops.plain_mul_tiled(
+                                   Fr_, a.reshape(N_LIMBS, mid, st[1]),
+                                   t).reshape(a.shape))
+            elif name == "point_op":
+                op, count, shape = key
+                # the kernel reads a batch flat: (16, N)
+                lanes = int(np.prod(shape[1:]))
+                coords = [rnd(Fq_, (lanes,)) for _ in range(count)]
+                err = _max_err(cuda_point.point_op(op, coords),
+                               cuda_point.plain_point_op(op, coords))
+            elif name == "msm_scan":
+                (G, n), block, nb = key
+                c = (nb - 1).bit_length()
+                rows = msm_sorted.pack_xy(rnd(Fq_, (n,)), rnd(Fq_, (n,))) \
+                    .t().contiguous()
+                order, skey = _scan_inputs(gen, device, G, n, c, "scalars")
+                err = _max_err(
+                    _flat_scan(cuda_point.msm_scan(rows, order, skey, block,
+                                                   nb)),
+                    _flat_scan(cuda_point.plain_msm_scan(rows, order, skey,
+                                                         block, nb)))
+            else:                                    # horner
+                shape, c_bits, tail = key
+                totals = tuple(rnd(Fq_, shape[1:]) for _ in range(3))
+                err = _max_err(cuda_point.horner(totals, c_bits, tail),
+                               g1.plain_horner(totals, c_bits, tail))
+            worst = max(worst, err)
+        out[name] = {"shapes": len(keys), "max_abs_err": worst}
+    return out
+
+
+def _mesh_primitives(mesh, ext_k: int, cols: int, rot_scale: int,
+                     blinders: int, gen, device) -> dict:
+    """DistNTT at the args path's extended size, batched as evaluate_h
+    extends the advice; the sharded MSM over 2^16 SRS-like points, full
+    and bounded; dist_roll on every (q, r) branch — each exact against
+    its single-device counterpart."""
+    Fr_ = fr(device)
+    out = {}
+    n = 1 << ext_k
+    x = _rand_field(Fr_, (cols, n), gen)
+    dist = DistNTT(ext_k, mesh)
+    ntt = get_ntt(ext_k, device)
+    for name in ("forward", "inverse", "inverse_nodiv"):
+        got = getattr(dist, name)(x).gather()
+        if not torch.equal(got, getattr(ntt, name)(x)):
+            raise AssertionError(f"mesh: DistNTT.{name} differs from NTT at "
+                                 f"2^{ext_k}")
+    out["dist_ntt"] = {
+        "ext_k": ext_k, "columns": cols, "equal": True,
+        "ms": _time_cuda(lambda: dist.forward(x), 5),
+        "single_ms": _time_cuda(lambda: ntt.forward(x), 5)}
+    dist.drop_tables()
+    ntt.drop_tables()
+    m = 1 << 16
+    aff, _ = _rand_points(m, gen, device)
+    full = _rand_field(Fr_, (m,), gen)
+    short_std = torch.zeros((N_LIMBS, m), dtype=torch.int32, device=device)
+    short_std[0] = torch.randint(0, 1 << 16, (m,), dtype=torch.int32,
+                                 device=device, generator=gen)
+    short = Fr_.to_mont(short_std)
+    cols_, bits = [full, short], [256, 16]
+    got = g1.decode_points(g1.to_affine(msm_many_sharded(
+        aff, cols_, mesh, "x", bits)))
+    want = g1.decode_points(g1.to_affine(msm_many(aff, cols_, bits)))
+    if got != want:
+        raise AssertionError("mesh: the sharded MSM differs from msm_many")
+    out["msm_sharded"] = {
+        "points": m, "columns": ["full", "16-bit, max_bits 16"],
+        "equal": True,
+        "ms": _time_cuda(lambda: msm_many_sharded(aff, cols_, mesh, "x",
+                                                  bits), 3),
+        "single_ms": _time_cuda(lambda: msm_many(aff, cols_, bits), 3)}
+    devices = mesh.devices_of("x")
+    L = n // len(devices)
+    shifts = [0, 5, L, 3 * L % n, 2 * L + 7, n - 1, n - 3, n + 11,
+              rot_scale, -(blinders + 1) * rot_scale]
+    col = _rand_field(Fr_, (3, n), gen)
+    shards = list(col.chunk(len(devices), dim=-1))
+    for s in shifts:
+        if not torch.equal(torch.cat(dist_roll(shards, devices, s), dim=-1),
+                           torch.roll(col, -s, dims=-1)):
+            raise AssertionError(f"mesh: dist_roll by {s} differs from "
+                                 f"torch.roll")
+    out["dist_roll"] = {"ext_n": n, "shifts": shifts, "equal": True}
+    return out
+
+
+def phase_mesh(k: int, seed: int, device) -> dict:
+    """AllArgsCircuit at 2^k rows proved over a mesh of MESH_SHARDS shards
+    (params.use_mesh) and on one device, same seed: the same bytes, the
+    port's verifier and BatchVerifier accept, a tampered proof is
+    rejected; the mesh path's launches (setup, keygen and the sharded
+    proof, counts set to 0 just before and read just after), every
+    wrapper at the shapes it was called with there held to its plain
+    version, the primitives against their single-device counterparts,
+    seconds by phase of both proofs and peak bytes per device."""
+    mesh = _card_mesh()
+    devices = [str(d) for d in mesh.flat]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    t0 = time.time()
+    circuit = AllArgsCircuit(AllArgsCircuit.usable_rows(k))
+    instances = [[circuit.instance()]]
+    sh = _shapes(k, "mesh", circuit)
+    cs = ConstraintSystem()
+    circuit.configure(cs)
+    primitives = _mesh_primitives(
+        mesh, sh["ext_k"], cs.num_advice_columns, sh["ext_n"] // sh["n"],
+        cs.blinding_factors(), gen, device)
+    distinct = sorted(set(devices))
+    record = {}
+    # what earlier phases left allocated: the peaks below include it
+    before = {d: torch.cuda.memory_allocated(d) for d in distinct}
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    profiling.reset()
+    _reset_counts()                          # the mesh path starts here
+    phases = profiling.PhaseTimes(device)
+    sharded_phases = profiling.PhaseTimes(device)
+
+    def run():
+        params = Params.unsafe_setup(k, seed=seed, device=device)
+        params.use_mesh(mesh)
+        phases("unsafe_setup")
+        vk, pk = keygen(params, circuit, floor_planner=FlatFloorPlanner,
+                        device=device)
+        phases("keygen")
+        proof = create_proof(params, pk, circuit, instances, seed=seed + 1,
+                             floor_planner=FlatFloorPlanner, device=device,
+                             phases=sharded_phases)
+        phases("create_proof sharded")
+        return params, vk, pk, proof
+    params, vk, pk, proof = _recorded(run, record)
+    launches = dict({**cuda_ops.launch_counts, **cuda_point.launch_counts})
+    counters = dict(profiling.counters)      # and ends here
+    peaks = {d: torch.cuda.max_memory_allocated(d) for d in distinct}
+    params.use_mesh(None)
+    _reset_counts()
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    single_phases = profiling.PhaseTimes(device)
+    single = create_proof(params, pk, circuit, instances, seed=seed + 1,
+                          floor_planner=FlatFloorPlanner, device=device,
+                          phases=single_phases)
+    phases("create_proof single")
+    single_peaks = {d: torch.cuda.max_memory_allocated(d) for d in distinct}
+    single_launches = {key: v for key, v in {
+        **cuda_ops.launch_counts, **cuda_point.launch_counts}.items() if v}
+    if proof != single:
+        raise AssertionError("mesh: the sharded proof differs from the "
+                             "single-device proof of the same seed")
+    # the sharded proof again, warm as the single one was, with its own
+    # launches and peaks
+    params.use_mesh(mesh)
+    _reset_counts()
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    warm_phases = profiling.PhaseTimes(device)
+    again = create_proof(params, pk, circuit, instances, seed=seed + 1,
+                         floor_planner=FlatFloorPlanner, device=device,
+                         phases=warm_phases)
+    phases("create_proof sharded warm")
+    warm_peaks = {d: torch.cuda.max_memory_allocated(d) for d in distinct}
+    warm_launches = {key: v for key, v in {
+        **cuda_ops.launch_counts, **cuda_point.launch_counts}.items() if v}
+    params.use_mesh(None)
+    if again != single:
+        raise AssertionError("mesh: the warm sharded proof differs")
+    pv = params.verifier(1)
+    ok = verify_proof_multi(pv, vk, [instances], proof)
+    batch = BatchVerifier(seed=seed)
+    verify_proof_multi(pv, vk, [instances], proof, strategy=batch)
+    batch_ok = batch.finalize(pv)
+    tampered = bytearray(proof)
+    tampered[-40] ^= 1
+    if not (ok and batch_ok):
+        raise AssertionError("mesh: the sharded proof was rejected")
+    if not _rejects(pv, vk, [instances], bytes(tampered)):
+        raise AssertionError("mesh: a tampered proof was accepted")
+    for kernel, count in launches.items():
+        if count <= 0 and kernel not in OFF_PROVE_PATH:
+            raise AssertionError(f"mesh: kernel {kernel} was never launched "
+                                 f"on the path")
+    for kernel, per in (("msm_scan", "msm_window_groups"),
+                        ("horner", "horner_calls")):
+        if launches[kernel] != counters[per]:
+            raise AssertionError(f"mesh: {kernel} made {launches[kernel]} "
+                                 f"launches for {counters[per]} {per}")
+    if counters.get("dist_ntt_calls", 0) < 1:
+        raise AssertionError("mesh: no transform went over the mesh")
+    replay = _replay(record, gen, device)
+    for name, r in replay.items():
+        if r["max_abs_err"]:
+            raise AssertionError(f"mesh: {name} disagrees with its plain "
+                                 f"version at a mesh shape")
+    crossed = len(distinct) > 1
+    print(json.dumps({"mesh": {
+        "k": k, "rows": 1 << k, "shards": MESH_SHARDS,
+        "devices": devices, "device_count": torch.cuda.device_count(),
+        "extended_k": vk.domain.extended_k, "proof_bytes": len(proof),
+        "bytes_equal_single_device": True, "verified": ok,
+        "batch_verified": batch_ok, "tampered_rejected": True,
+        "primitives": primitives,
+        "seconds": {n_: round(s, 3) for n_, s in phases.seconds.items()},
+        "create_proof_seconds": {
+            "sharded": {n_: round(s, 3)
+                        for n_, s in sharded_phases.seconds.items()},
+            "single": {n_: round(s, 3)
+                       for n_, s in single_phases.seconds.items()},
+            "sharded_warm": {n_: round(s, 3)
+                             for n_, s in warm_phases.seconds.items()}},
+        "launches": launches,
+        "proof_launches": {"sharded_warm": warm_launches,
+                           "single": single_launches},
+        "counters": counters,
+        "peak_allocated_bytes_by_device": {
+            "allocated_before": before, "mesh_path": peaks,
+            "single_proof": single_peaks, "sharded_warm_proof": warm_peaks},
+        "mesh_shapes": replay,
+        "seconds_total": round(time.time() - t0, 2)}}), flush=True)
+    print(json.dumps({"mesh_copies_crossed_cards": crossed}), flush=True)
+    return launches, replay
+
+
 LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "mul_tiled": "mul_tiled", "field_pow": "pow",
               "field_scan": "scan", "point_op": "point_op",
@@ -1467,7 +1799,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder",
               "dft_epilogue": "dft_epilogue"}
-ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,large,dft"
+ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,large,mesh,dft"
 
 
 def main(argv=None) -> int:
@@ -1503,9 +1835,17 @@ def main(argv=None) -> int:
         paths["synth"] = phase_synth(args.k, args.seed, device)
     if "large" in phases:
         paths["large"] = phase_large(LARGE_K, args.seed, device)
+    mesh_replay = {}
+    if "mesh" in phases:
+        paths["mesh"], mesh_replay = phase_mesh(args.k, args.seed, device)
     if "dft" in phases:
         entry, paths["dft"] = phase_dft(device, out["smi"])
         entries.append(entry)
+    for wrapper, r in mesh_replay.items():
+        for e in entries:
+            if e["name"] == MESH_KERNEL_NAME[wrapper]:
+                e["mesh_shapes"] = r
+                e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
     for e in entries:
         by_path = {path: counts.get(LAUNCH_KEY[e["name"]], 0)
                    for path, counts in paths.items()}

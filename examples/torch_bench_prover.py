@@ -5,6 +5,7 @@ examples/bench_prover.py.
 
     python3 examples/torch_bench_prover.py [--k 22] [--circuit mulchain]
                                            [--offload] [--proofs 2]
+                                           [--mesh D]
 
 `--circuit mulchain` is halo2_tpu_torch.circuits.MulChainCircuit (a chain
 of mul gates over 95 % of the rows, gates + permutation, GWC);
@@ -14,8 +15,10 @@ phases) and `--proofs` proofs in one process (the first is cold, the rest
 warm), each verified, with `--offload` passing offload_lagrange=True.
 Each phase's peak allocated and reserved bytes are read at its end and the
 device's peak statistics reset (utils.profiling.PhaseTimes(peaks=True)).
-Prints one JSON line per stage, the card's name and power limit, and a
-summary line.  A CUDA out-of-memory error is a result: its stage, the
+`--mesh D` proves (and keygens) with params.use_mesh over D shards on
+cuda:(i % device_count) (all on the CPU with --device cpu), and adds each proof's peak allocated bytes on
+every other card of the mesh.  Prints one JSON line per stage, the card's
+name and power limit, and a summary line.  A CUDA out-of-memory error is a result: its stage, the
 phases finished before it and the port's innermost frame are printed, and
 the exit code is 3.
 """
@@ -42,6 +45,7 @@ from halo2_tpu_torch.plonk.verifier import verify_proof  # noqa: E402
 from halo2_tpu_torch.poly.commitment import Params  # noqa: E402
 from halo2_tpu_torch.utils import profiling  # noqa: E402
 from halo2_tpu_torch.utils.device import require_device  # noqa: E402
+from halo2_tpu_torch.utils.mesh import Mesh  # noqa: E402
 
 
 def circuit_for(name: str, k: int):
@@ -73,17 +77,28 @@ def main() -> int:
     ap.add_argument("--proofs", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="shards on cuda:(i % device_count); 0: one device")
     args = ap.parse_args()
     device = require_device(args.device)
+    mesh = others = None
+    if args.mesh:
+        count = torch.cuda.device_count() if device.type == "cuda" else 1
+        mesh = Mesh([torch.device("cuda", i % count)
+                     if device.type == "cuda" else device
+                     for i in range(args.mesh)])
+        others = sorted({str(d) for d in mesh.flat} - {str(device)})
     circuit, instances, planner = circuit_for(args.circuit, args.k)
     head = {"k": args.k, "circuit": args.circuit, "offload": args.offload,
-            "proofs": args.proofs}
+            "proofs": args.proofs,
+            "mesh": [str(d) for d in mesh.flat] if mesh else None}
     print(json.dumps({"bench": head}), flush=True)
     summary = dict(head)
     stage, pt = "unsafe_setup", None
     try:
         pt = profiling.PhaseTimes(device, peaks=True)
         params = Params.unsafe_setup(args.k, seed=args.seed, device=device)
+        params.use_mesh(mesh)
         pt("unsafe_setup")
         print(json.dumps({"unsafe_setup": phase_record(pt)}), flush=True)
         stage = "keygen"
@@ -102,6 +117,8 @@ def main() -> int:
         for i in range(args.proofs):
             stage = f"create_proof {i}"
             profiling.reset()
+            for d in others or ():
+                torch.cuda.reset_peak_memory_stats(d)
             pt = profiling.PhaseTimes(device, peaks=True)
             t0 = time.perf_counter()
             proof = create_proof(params, pk, circuit, instances,
@@ -116,6 +133,9 @@ def main() -> int:
             verify_s = time.perf_counter() - t0
             peak = {"allocated": peak_of(pt, "allocated"),
                     "reserved": peak_of(pt, "reserved")}
+            if others:
+                peak["allocated_other_cards"] = {
+                    d: torch.cuda.max_memory_allocated(d) for d in others}
             print(json.dumps({"proof": {
                 "index": i, "cold": i == 0, "seconds": round(seconds, 3),
                 "phases": phase_record(pt), "peak": peak,

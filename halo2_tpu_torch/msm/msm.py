@@ -77,6 +77,20 @@ def msm_many(points, scalar_columns, max_bits=None):
     if len(bits) != len(scalar_columns):
         raise ValueError("one max_bits entry per column")
     block = _block_for(n)
+    return _combine_windows(
+        column_totals(px, py, scalar_columns, bits, block),
+        window_bits_for(block))
+
+
+def column_totals(px, py, scalar_columns, bits, block: int):
+    """The window totals of each column over one set of points (16, n):
+    3 coords of (16, C, W), every column's totals padded with the identity
+    to one window count W.  The points and scalars are padded up to a
+    multiple of `block` with copies of the first point under zero
+    scalars; the window width and groups follow from `block` and n, so
+    equal input sizes give equal windows (the sharded MSM adds the
+    totals of its shards)."""
+    n = px.shape[1]
     pad = (-n) % block
     if pad:
         px = torch.cat([px, px[:, :1].expand(N_LIMBS, pad)], dim=1)
@@ -94,11 +108,10 @@ def msm_many(points, scalar_columns, max_bits=None):
             px, py, scalars_mont, mb, group, block, c))
     width = max(t[0].shape[1] for t in per_column)
     ident = g1.identity((width,), px.device)
-    totals = tuple(
+    return tuple(
         torch.stack([torch.cat([t[k], ident[k][:, t[k].shape[1]:]], dim=1)
                      for t in per_column], dim=1)
         for k in range(3))                              # (16, C, W)
-    return _combine_windows(totals, c)
 
 
 def msm(points, scalars_mont, max_bits: int = 256):

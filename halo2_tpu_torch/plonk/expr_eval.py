@@ -21,10 +21,12 @@ class ExprCtx:
     """Column stacks (16, C, length) + rotation scale for one domain.
 
     `roll` rotates a (16, L) array left by `shift` rows in the domain
-    order."""
+    order; `F` is the field context of the column stacks (default: Fr on
+    the advice stack's device).  The sharded evaluator hands in sharded
+    stacks with a field context and a roll that work on them."""
 
     def __init__(self, advice, fixed, instance, rot_scale: int, length: int,
-                 roll=None):
+                 roll=None, F=None):
         self.advice = advice
         self.fixed = fixed
         self.instance = instance
@@ -32,10 +34,11 @@ class ExprCtx:
         self.length = length
         self.roll = roll or (lambda col, shift:
                              torch.roll(col, -shift, dims=-1))
+        self.F = F if F is not None else fr(advice.device)
 
 
 def eval_expr(expr, ctx: ExprCtx):
-    F = fr(ctx.advice.device)
+    F = ctx.F
     if isinstance(expr, Constant):
         return F.broadcast_scalar(F.encode_scalar(expr.value), (ctx.length,))
     if isinstance(expr, (FixedQuery, AdviceQuery, InstanceQuery)):
@@ -58,7 +61,7 @@ def eval_expr(expr, ctx: ExprCtx):
 
 def compress_exprs(exprs, ctx: ExprCtx, theta):
     """theta-fold: acc = acc * theta + eval (first expr highest power)."""
-    F = fr(ctx.advice.device)
+    F = ctx.F
     acc = None
     for e in exprs:
         v = eval_expr(e, ctx)

@@ -29,6 +29,7 @@ from halo2_tpu_torch.plonk import permutation as perm_mod
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.error import NotEnoughRowsAvailable
 from halo2_tpu_torch.plonk.evaluator import Evaluator
+from halo2_tpu_torch.plonk.evaluator_sharded import ShardedEvaluator
 from halo2_tpu_torch.poly.arith import PointPowers
 from halo2_tpu_torch.poly.domain import EvaluationDomain
 from halo2_tpu_torch.utils import offload, profiling
@@ -206,8 +207,18 @@ class ProvingKey:
         self.l_last_coeff = l_last_coeff
         self.l_blind_coeff = l_blind_coeff
         self.ev = Evaluator(self)
+        self._sharded_evs = {}
         self._forms_copy = None           # an offload in flight
         self._forms_on_host = False
+
+    def sharded_ev(self, mesh, axis: str = "x"):
+        """The cached h-evaluator over a mesh of devices
+        (plonk/evaluator_sharded.py); the prover takes it when
+        params.use_mesh is set."""
+        key = (mesh, axis)
+        if key not in self._sharded_evs:
+            self._sharded_evs[key] = ShardedEvaluator(self, mesh, axis)
+        return self._sharded_evs[key]
 
     # -- device memory relief at large k (keygen.py:199-234) --------------
     def offload_lagrange_forms(self):

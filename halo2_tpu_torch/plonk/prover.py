@@ -23,6 +23,13 @@ Several instances of one circuit go into one proof (create_proof_multi):
 steps 2-7 and 10 run per proof, in the reference's transcript order, and
 the h numerator is chained across proofs before one quotient.
 
+Under params.use_mesh (a mesh of devices, utils/mesh.py) the commitments
+take the sharded MSM, the step-7 iNTTs (from MESH_MSM_MIN rows on) and the
+quotient's extended iNTT the four-step transform over the mesh, and step 8
+the sharded evaluator, whose h stays row-sharded until the quotient's
+transform; coefficient forms stay whole on the mesh's first device.  The
+host draws and the transcript are the same, so are the proof bytes.
+
 From n >= LARGE_N rows on, the reference's large-domain sequence
 (prover.py:361-363, 521-536, 554-599, 608-612, 627-635 of halo2_tpu):
 the step-7 stacks are transformed proof by proof, each handed over to its
@@ -576,7 +583,19 @@ def create_proof_multi(params, pk, circuits, instances_list,
         params.offload_lagrange()
     # 7. coeff forms: every column of one kind, of every proof, in one
     # batched iNTT; from LARGE_N on proof by proof, each stack handed over
-    # to its transform (one concatenation would double the stacks)
+    # to its transform (one concatenation would double the stacks).  Under
+    # a mesh the transform is the four-step one over it (the multi-GPU
+    # lagrange_to_coeff_st of prover.rs:639-661), its result gathered.
+    mesh, mesh_axis = params.mesh, params.mesh_axis
+    use_dist_ntt = mesh is not None and n >= params.MESH_MSM_MIN
+    if use_dist_ntt:
+        dist = domain.dist_ntt(mesh, mesh_axis)
+
+        def ntt_inverse(box):
+            return dist.inverse(box).gather(device)
+    else:
+        ntt_inverse = domain.ntt.inverse
+
     def to_coeff(per_proof):
         """per proof a (16, C_i, n) stack, taken out of the list -> per
         proof its coeff form."""
@@ -585,12 +604,11 @@ def create_proof_multi(params, pk, circuits, instances_list,
             out = []
             for p_i in proofs:
                 box, per_proof[p_i] = [per_proof[p_i]], None
-                out.append(domain.ntt.inverse(box) if counts[p_i]
-                           else box[0])
+                out.append(ntt_inverse(box) if counts[p_i] else box[0])
             return out
         if not sum(counts):
             return per_proof
-        return _split(domain.ntt.inverse(_cat(per_proof)), counts)
+        return _split(ntt_inverse([_cat(per_proof)]), counts)
 
     def stacks(per_proof_lists):
         """per proof a list of (16, n) columns -> per proof one stack; the
@@ -627,10 +645,11 @@ def create_proof_multi(params, pk, circuits, instances_list,
         pk.join_offloads()
         params.join_offload()
     # 8. h evaluation, the fold chained across proofs
-    # (evaluation.rs:900-1000)
+    # (evaluation.rs:900-1000); row-sharded over the mesh under use_mesh
+    ev = pk.sharded_ev(mesh, mesh_axis) if mesh is not None else pk.ev
     h_ext = None
     for p_i in proofs:
-        h_ext = pk.ev.evaluate_h(
+        h_ext = ev.evaluate_h(
             advice_coeff[p_i], instance_coeff[p_i], perm_z_stack[p_i],
             lookup_m_stack[p_i], lookup_z_stack[p_i], shuffle_z_stack[p_i],
             theta, beta, gamma, y, value_init=h_ext)
@@ -640,13 +659,17 @@ def create_proof_multi(params, pk, circuits, instances_list,
         # the forward extended tables (a 512 MiB mid table at 2^23) are
         # dead until the next proof's coset extensions
         domain.ntt_ext.drop_tables(inverse=False)
-    # 9. vanishing construct -> x; the h values handed over
+    # 9. vanishing construct -> x; the h values handed over (the extended
+    # iNTT over the mesh under use_mesh: evaluation_gpu.rs:863-911's
+    # per-GPU extended iFFTs)
     box, h_ext = [h_ext], None
-    h_pieces, h_commitments = vanishing.construct(box)
+    h_pieces, h_commitments = vanishing.construct(box, mesh, mesh_axis)
     # the inverse extended tables serve this one transform: built after
     # the evaluate_h peak, kept they would sit in the next proof's (256 MiB
     # at 2^22)
     domain.ntt_ext.drop_tables(inverse=True)
+    if mesh is not None:
+        domain.dist_ntt(mesh, mesh_axis, extended=True).drop_tables()
     for com in h_commitments:
         transcript.write_point(com)
     x = transcript.squeeze_challenge()

@@ -52,15 +52,18 @@ class VanishingProver:
         lo, hi = both[:, :n], both[:, n:]
         return F.add(lo, F.mul(hi, F.encode_scalar(pow(2, 253, P))))
 
-    def construct(self, h_ext):
+    def construct(self, h_ext, mesh=None, axis="x"):
         """h numerator on extended coset -> (pieces (16, qd, n), commitments).
-        h_ext: the (16, ext_n) values, or a one-element list handing them
-        over, so that they are let go once divided."""
+        h_ext: the (16, ext_n) values, or with a mesh the row-sharded
+        ShardedArray of the sharded evaluator, alone or in a one-element
+        list handing them over, so that they are let go once divided.
+        With a mesh, the extended iNTT is the four-step transform over
+        it."""
         domain = self.domain
         h_ext = take(h_ext)
         h = domain.divide_by_vanishing_poly(Polynomial(h_ext, "extended"))
         del h_ext
-        h_coeff = domain.extended_to_coeff(h)                # (16, n*qd)
+        h_coeff = domain.extended_to_coeff(h, mesh, axis)    # (16, n*qd)
         qd = domain.quotient_poly_degree
         pieces = h_coeff.reshape(N_LIMBS, qd, domain.n)
         commitments = self.params.commit_many_affine(

@@ -17,6 +17,8 @@ Analogue of halo2_proofs/src/poly/commitment.rs:
     memory between a large proof's last Lagrange commitment and its
     extended-domain phases; every reader of `g_lagrange` brings it back
     (`_lagrange_dev`).
+  * `use_mesh` routes the commitments through the sharded MSM
+    (msm/distributed.py) over a mesh of devices (utils/mesh.py).
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ import torch
 
 from halo2_tpu_torch.curves import g1, host
 from halo2_tpu_torch.fields.limbs import N_LIMBS, ints_to_limbs_np, to_tensor
+from halo2_tpu_torch.msm.distributed import msm_many_sharded
 from halo2_tpu_torch.msm.msm import msm_many
 from halo2_tpu_torch.ntt.ntt import get_ntt
 from halo2_tpu_torch.pairing import bn254 as pairing
 from halo2_tpu_torch.transcript.blake2b import point_to_bytes
+from halo2_tpu_torch.utils import mesh as mesh_mod
 from halo2_tpu_torch.utils import offload, profiling
 from halo2_tpu_torch.utils.device import require_device
 
@@ -92,6 +96,51 @@ class Params:
         self._lagrange_on_host = False
         self.s_g2 = s_g2                  # host G2 point (FQ2 pair)
         self.device = g_dev.device
+        self.mesh = None                  # set by use_mesh
+        self.mesh_axis = "x"
+        self._mesh_bases = {}             # basis -> shards off self.device
+
+    # sharded-MSM size gate: below it, one device is faster than paying
+    # the per-shard fixed costs (the reference's >2^14 GPU-vs-CPU gate,
+    # arithmetic.rs:442-458)
+    MESH_MSM_MIN = 1 << 12
+
+    def use_mesh(self, mesh, axis="x"):
+        """Route every commitment of at least MESH_MSM_MIN points through
+        the sharded MSM over `mesh` (utils/mesh.Mesh): the bases and the
+        values shard over `axis` (one axis name, or a tuple outermost
+        first for a 2-D mesh), the window totals reduce innermost axis
+        first.  The prover also shards its iNTTs and h(X) over the mesh.
+        mesh=None goes back to one device.  The mesh's first device must
+        be the one the params live on."""
+        if mesh is not None and mesh.devices_of(axis)[0] != self.device:
+            raise ValueError(f"the mesh's first device is "
+                             f"{mesh.devices_of(axis)[0]}, the params are "
+                             f"on {self.device}")
+        self.mesh = mesh
+        self.mesh_axis = axis
+        self._mesh_bases = {}
+        return self
+
+    def _bases_over_mesh(self, base: str, bases) -> tuple:
+        """The bases as (x shards, y shards) over the mesh.  A shard on
+        another device than the params' is copied there at its first use
+        and kept, as the reference keeps the SRS resident on every GPU;
+        one on the params' own device is a view of `bases`, so that an
+        offload of the Lagrange basis still frees it."""
+        devices = self.mesh.devices_of(self.mesh_axis)
+        step = self.n // len(devices)
+        kept = self._mesh_bases.setdefault(base, {})
+        xs, ys = [], []
+        for d, dev in enumerate(devices):
+            x, y = (b.narrow(1, d * step, step) for b in bases)
+            if dev != self.device:
+                if d not in kept:
+                    kept[d] = (mesh_mod.to(x, dev), mesh_mod.to(y, dev))
+                x, y = kept[d]
+            xs.append(x)
+            ys.append(y)
+        return xs, ys
 
     @property
     def g_lagrange(self):
@@ -185,6 +234,11 @@ class Params:
         if base not in ("coeff", "lagrange"):
             raise ValueError(f"unknown basis {base!r}")
         bases = self.g if base == "coeff" else self.g_lagrange
+        if (self.mesh is not None and self.n >= self.MESH_MSM_MIN
+                and self.n % self.mesh.size(self.mesh_axis) == 0):
+            return msm_many_sharded(self._bases_over_mesh(base, bases),
+                                    list(columns), self.mesh, self.mesh_axis,
+                                    max_bits)
         return msm_many((bases[0], bases[1]), list(columns), max_bits)
 
     def commit_many_affine(self, columns, max_bits=None,

@@ -21,7 +21,9 @@ import torch
 from halo2_tpu_torch.fields import cuda_ops
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS, FR_ZETA, fr
 from halo2_tpu_torch.fields.limbs import N_LIMBS, ints_to_limbs_np, to_tensor
+from halo2_tpu_torch.ntt.distributed import DistNTT
 from halo2_tpu_torch.ntt.ntt import get_ntt
+from halo2_tpu_torch.utils.mesh import ShardedArray, gather
 
 P = FR_MODULUS
 
@@ -96,6 +98,7 @@ class EvaluationDomain:
             t_evals.append((cur - 1) % P)
             cur = cur * step % P
         self.t_evaluations_inv = [pow(t, P - 2, P) for t in t_evals]
+        self._dist = {}
 
     # -- constructors ------------------------------------------------------
     def empty_lagrange(self) -> Polynomial:
@@ -187,34 +190,82 @@ class EvaluationDomain:
             self.F, values.contiguous(), self._zeta_pattern_n())
         return self.ntt_ext.forward(box)        # the padded copy handed over
 
-    def extended_to_coeff(self, p: Polynomial) -> torch.Tensor:
+    def dist_ntt(self, mesh, axis="x", extended: bool = False) -> DistNTT:
+        """The cached four-step transform of this domain (or of its
+        extended domain) sharded over a mesh axis: the prover's transform
+        under params.use_mesh (ntt/distributed.py)."""
+        key = (mesh, axis, extended)
+        d = self._dist.get(key)
+        if d is None:
+            d = self._dist[key] = DistNTT(
+                self.extended_k if extended else self.k, mesh, axis,
+                omega=self.extended_omega if extended else self.omega)
+        return d
+
+    def extended_to_coeff(self, p: Polynomial, mesh=None,
+                          axis="x") -> torch.Tensor:
         """Extended evals -> quotient coefficients, truncated to
         n * quotient_poly_degree (domain.rs:328-350). Returns raw (16, t).
 
         CONSUMES p.values (p is left without values), as the reference's
         domain.py:223 does: the extended column is let go inside the
-        transform.  From extended_n >= STREAM_NTT_MIN on, the inverse
-        transform runs in lane chunks (NTT.inverse_streamed_nodiv), so its
-        live memory is input + output + mid table + one chunk."""
+        transform.  With a mesh, p.values is row-sharded (a ShardedArray,
+        as the sharded evaluator gives h) and the inverse transform is the
+        four-step one over the mesh: each shard folds the divisor and the
+        zeta^{-i} pattern into its own rows, and the coefficients are
+        gathered on this domain's device.  Else, from extended_n >=
+        STREAM_NTT_MIN on, the inverse transform runs in lane chunks
+        (NTT.inverse_streamed_nodiv), so its live memory is input + output
+        + mid table + one chunk."""
         self._expect(p, "extended", self.extended_n)
         box, p.values = [p.values], None
+        tail = self.n * self.quotient_poly_degree
+        if mesh is not None:
+            return self._extended_to_coeff_dist(box, mesh, axis, tail)
         if self.extended_n >= STREAM_NTT_MIN:
             coeffs = self.ntt_ext.inverse_streamed_nodiv(box)
         else:
             coeffs = self.ntt_ext.inverse_nodiv(box)
-        tail = self.n * self.quotient_poly_degree
         return cuda_ops.mul_tiled(self.F, coeffs[:, :tail].contiguous(),
                                   self._zeta_inv_pattern())
 
+    def _extended_to_coeff_dist(self, box, mesh, axis, tail: int):
+        shards = self.dist_ntt(mesh, axis, extended=True).inverse_nodiv(
+            box).shards
+        L = self.extended_n // len(shards)
+        out = []
+        for d, s in enumerate(shards):
+            rows = min(L, tail - d * L)
+            if rows <= 0:
+                break
+            # the pattern from this shard's first row on: phase d*L mod 3
+            phase = d * L % 3
+            pat = self._zeta_tile(self.g_coset_inv, phase + rows,
+                                  scale=self.ntt_ext.n_inv)[:, phase:]
+            out.append(cuda_ops.mul_tiled(fr(s.device),
+                                          s[:, :rows].contiguous(),
+                                          pat.to(s.device).contiguous()))
+        del shards
+        return gather(out, self.device)
+
     def divide_by_vanishing_poly(self, p: Polynomial) -> Polynomial:
+        """h / t(X) on the extended coset; row-sharded values (a
+        ShardedArray) are divided shard by shard."""
         self._expect(p, "extended", self.extended_n)
         # t_evaluations^{-1} is periodic with period 2^(ext_k - k): the
-        # small table serves every period
+        # small table serves every period (a shard's ext_n/D rows are a
+        # multiple of it while n >= D)
         period = len(self.t_evaluations_inv)
-        out = cuda_ops.mul_tiled(
-            self.F, p.values.reshape(N_LIMBS, self.extended_n // period,
-                                     period).contiguous(), self._t_inv_small())
-        return Polynomial(out.reshape(N_LIMBS, self.extended_n), "extended")
+        tab = self._t_inv_small()
+
+        def divide(v):
+            return cuda_ops.mul_tiled(
+                fr(v.device), v.reshape(N_LIMBS, -1, period).contiguous(),
+                tab.to(v.device)).reshape(N_LIMBS, -1)
+
+        if isinstance(p.values, ShardedArray):
+            return Polynomial(p.values.map(divide), "extended")
+        return Polynomial(divide(p.values), "extended")
 
     def rotate_extended(self, values, rotation: int):
         """Roll extended-domain values by rotation over the ORIGINAL domain

@@ -4,7 +4,7 @@ tests/data/torch_golden_horner.json, tests/data/torch_golden_scan.json,
 tests/data/torch_golden_args.json, tests/data/torch_golden_multi.json and
 tests/data/torch_golden_synth.json from the JAX package.
 
-    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py [multi|synth]
+    JAX_PLATFORMS=cpu python3 tests/data/gen_torch_golden.py [multi|synth|mesh]
 
 Proves `tests/test_e2e.py`'s SimpleCircuit (K = 4, Params.unsafe_setup
 seed 7, a = 3, b = 5) with halo2_tpu for the prover seeds 0 and 1 and
@@ -54,6 +54,20 @@ from that witness file (seed 5); and `shplonk._construct_intermediate_sets`
 on a recorded query list (tests/test_torch_multi.py,
 tests/test_torch_shplonk.py, tests/test_torch_io.py).  Each part runs in a
 process of its own.
+
+The seventh (`mesh` writes it alone, each part in a process of its own)
+holds the multi-device path on conftest's 8-device virtual CPU mesh:
+`ntt.distributed.DistNTT` forward (column by column), inverse and
+inverse_nodiv (two columns at once) at log_n 8 and 10; `msm_sharded` over
+256 points, full scalars, 16-bit scalars with max_bits 16, and on the 2-D
+(2 x 4) mesh, as affine points; `ShardedEvaluator.evaluate_h` on
+tests/test_sharded_prover.py's K = 6 setup and random inputs; the sharded
+SimpleCircuit K = 6 proof (seed 0, equal to the unsharded one) and the
+LookupShuffleCircuit K = 6 proof (params seed 99, prover seed 3).  The
+transforms and h are stored as the sha256 of their canonical integers
+(`ints_sha256`) with their first values; their inputs come from
+`mesh_field_ints` (tests/test_torch_distributed.py,
+tests/test_torch_sharded_prover.py).
 
 The sixth (`synth` writes it alone) holds the pinned vk, the GWC proof
 and the sha256 of the witness file of halo2_tpu_torch.circuits'
@@ -711,6 +725,196 @@ def synth_golden() -> dict:
         witness_sha256=hashlib.sha256(witness).hexdigest())
 
 
+# the multi-device records (torch_golden_mesh.json)
+MESH_D = 8
+MESH_NTT_LOGS = (8, 10)
+MESH_MSM_N, MESH_MSM_SEEDS = 256, {"full": 0xA11, "bounded": 0xB22,
+                                   "mesh2d": 0xD2D}
+MESH_EV_K, MESH_EV_SEED = 6, 3
+MESH_EV_CHALLENGES = (12345, 678, 910, 1112)   # theta, beta, gamma, y
+MESH_LS_K, MESH_LS_PARAMS_SEED, MESH_LS_SEED = 6, 99, 3
+
+
+def mesh_field_ints(seed: int, count: int) -> list:
+    """`count` field elements below 2^248 from numpy RandomState(seed):
+    four 62-bit draws each."""
+    words = np.random.RandomState(seed).randint(
+        0, 1 << 62, size=(count, 4), dtype=np.int64)
+    return [int(a) | int(b) << 62 | int(c) << 124 | int(d) << 186
+            for a, b, c, d in words.tolist()]
+
+
+def ints_sha256(ints) -> str:
+    """sha256 of canonical field elements, 32 little-endian bytes each."""
+    return hashlib.sha256(b"".join(
+        int(v).to_bytes(32, "little") for v in ints)).hexdigest()
+
+
+def mesh_msm_inputs(name: str):
+    """(ks, scalars, max_bits) of one sharded-MSM record: the points are
+    k * G for k in ks (curves.host.random_point's draws), the scalars full
+    with a stretch of equal ones (degenerate digits in one shard), or
+    16-bit."""
+    from halo2_tpu.fields.bn254 import Fr
+    r = random.Random(MESH_MSM_SEEDS[name])
+    ks = [r.randrange(1, Fr.p) for _ in range(MESH_MSM_N)]
+    if name == "bounded":
+        return ks, [r.randrange(1 << 16) for _ in range(MESH_MSM_N)], 16
+    scalars = [r.randrange(Fr.p) for _ in range(MESH_MSM_N)]
+    if name == "full":
+        scalars[32:64] = [scalars[32]] * 32
+    return ks, scalars, 256
+
+
+def _jax_mesh(shape=(MESH_D,), axes=("x",)):
+    import jax
+    from jax.sharding import Mesh
+    devs = np.array(jax.devices()[:MESH_D]).reshape(shape)
+    return Mesh(devs, axes)
+
+
+def _mesh_ntt_part() -> dict:
+    import jax.numpy as jnp
+    from halo2_tpu.fields.bn254 import Fr
+    from halo2_tpu.ntt.distributed import DistNTT
+    out = {}
+    for log_n in MESH_NTT_LOGS:
+        n = 1 << log_n
+        vals = mesh_field_ints(log_n, 2 * n)
+        a = jnp.stack([jnp.asarray(Fr.encode(vals[c * n:(c + 1) * n]))
+                       for c in range(2)], axis=1)          # (16, 2, n)
+        dist = DistNTT(log_n, _jax_mesh())
+        fwd = [v for c in range(2)
+               for v in Fr.decode(np.asarray(dist.forward(a[:, c, :])))]
+        rec = {"forward": fwd}
+        for name in ("inverse", "inverse_nodiv"):
+            got = np.asarray(getattr(dist, name)(a)).reshape(16, 2 * n)
+            rec[name] = Fr.decode(got)
+        out[str(log_n)] = {name: {"sha256": ints_sha256(v), "head": v[:4]}
+                           for name, v in rec.items()}
+    return out
+
+
+def _mesh_msm_part() -> dict:
+    import jax.numpy as jnp
+    from halo2_tpu.curves import g1, host
+    from halo2_tpu.fields.bn254 import Fr
+    from halo2_tpu.msm.distributed import msm_sharded
+    out = {}
+    for name in MESH_MSM_SEEDS:
+        ks, scalars, max_bits = mesh_msm_inputs(name)
+        pts = [host.mul(host.G1_GEN, k) for k in ks]
+        if name == "mesh2d":
+            mesh, axis = _jax_mesh((2, 4), ("dcn", "ici")), ("dcn", "ici")
+        else:
+            mesh, axis = _jax_mesh(), "x"
+        xy = g1.encode_points(pts)
+        proj = msm_sharded((xy[0], xy[1]), jnp.asarray(Fr.encode(scalars)),
+                           mesh, axis=axis, max_bits=max_bits)
+        got = g1.decode_points(jnp.stack(g1.to_affine(
+            tuple(c[:, None] for c in proj))))[0]
+        assert got == host.msm(pts, scalars)
+        out[name] = {"seed": MESH_MSM_SEEDS[name], "max_bits": max_bits,
+                     "axis": list(axis) if isinstance(axis, tuple) else axis,
+                     "affine": [str(got[0]), str(got[1])]}
+    return {"n": MESH_MSM_N, "records": out}
+
+
+def mesh_ev_inputs(cs, n: int) -> dict:
+    """tests/test_sharded_prover.py's evaluator inputs as canonical ints:
+    advice, instance and the permutation's z columns from
+    RandomState(MESH_EV_SEED), values below 2^30."""
+    rs = np.random.RandomState(MESH_EV_SEED)
+
+    def cols(c):
+        return [[int(v) for v in rs.randint(0, 1 << 30, size=n)]
+                for _ in range(c)]
+    chunk = cs.degree() - 2
+    sets = (-(-len(cs.permutation.columns) // chunk)
+            if cs.permutation.columns else 0)
+    return {"advice": cols(cs.num_advice_columns),
+            "instance": cols(cs.num_instance_columns),
+            "perm_z": cols(sets)}
+
+
+def _mesh_ev_part() -> dict:
+    import jax.numpy as jnp
+    from halo2_tpu.fields.bn254 import Fr
+    from halo2_tpu.fields.limbs import N_LIMBS
+    params = Params.unsafe_setup(MESH_EV_K, seed=PARAMS_SEED)
+    vk, pk = keygen(params, SimpleCircuit())
+    n = 1 << MESH_EV_K
+    inputs = mesh_ev_inputs(vk.cs, n)
+
+    def stack(cols):
+        return (jnp.stack([jnp.asarray(Fr.encode(c)) for c in cols], axis=1)
+                if cols else jnp.zeros((N_LIMBS, 0, n), jnp.uint32))
+    empty = stack([])
+    args = (stack(inputs["advice"]), stack(inputs["instance"]),
+            stack(inputs["perm_z"]), empty, empty, empty) \
+        + MESH_EV_CHALLENGES
+    single = np.asarray(pk.ev.evaluate_h(*args))
+    sharded = np.asarray(pk.sharded_ev(_jax_mesh()).evaluate_h(*args))
+    assert np.array_equal(single, sharded)
+    h = Fr.decode(sharded)
+    return {"k": MESH_EV_K, "params_seed": PARAMS_SEED,
+            "numpy_seed": MESH_EV_SEED,
+            "challenges": list(MESH_EV_CHALLENGES),
+            "h_sha256": ints_sha256(h), "head": h[:4]}
+
+
+def _mesh_simple_part() -> dict:
+    from halo2_tpu.plonk.verifier import verify_proof
+    params = Params.unsafe_setup(MESH_EV_K, seed=PARAMS_SEED)
+    vk, pk = keygen(params, SimpleCircuit())
+    out = expected_out(A, B)
+    single = create_proof(params, pk, SimpleCircuit(A, B), [[out]], seed=0)
+    params.use_mesh(_jax_mesh())
+    gate, Params.MESH_MSM_MIN = Params.MESH_MSM_MIN, 1
+    try:
+        sharded = create_proof(params, pk, SimpleCircuit(A, B), [[out]],
+                               seed=0)
+    finally:
+        Params.MESH_MSM_MIN = gate
+        params.use_mesh(None)
+    assert sharded == single
+    assert verify_proof(params.verifier(1), vk, [[out]], sharded)
+    return _proof_record("tests/test_e2e.py::SimpleCircuit", MESH_EV_K,
+                         PARAMS_SEED, 0, [[out]], True, sharded, vk)
+
+
+def _mesh_lookup_shuffle_part() -> dict:
+    from tests.test_lookup_shuffle import (VALS_A, VALS_B,
+                                           LookupShuffleCircuit)
+    params = Params.unsafe_setup(MESH_LS_K, seed=MESH_LS_PARAMS_SEED)
+    vk, pk = keygen(params, LookupShuffleCircuit())
+    proof = create_proof(params, pk, LookupShuffleCircuit(VALS_A, VALS_B),
+                         [], seed=MESH_LS_SEED)
+    return _proof_record("tests/test_lookup_shuffle.py::LookupShuffleCircuit",
+                         MESH_LS_K, MESH_LS_PARAMS_SEED, MESH_LS_SEED, [],
+                         True, proof, vk)
+
+
+MESH_PARTS = {"dist_ntt": _mesh_ntt_part, "msm_sharded": _mesh_msm_part,
+              "evaluate_h": _mesh_ev_part, "simple_k6": _mesh_simple_part,
+              "lookup_shuffle_k6": _mesh_lookup_shuffle_part}
+
+
+def mesh_golden() -> dict:
+    """Each part in a process of its own, merged."""
+    import subprocess
+    parts = {}
+    for name in MESH_PARTS:
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "mesh-part", name],
+            capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"part {name} failed:\n{done.stderr[-3000:]}")
+        parts[name] = json.loads(done.stdout.strip().splitlines()[-1])
+        print(f"{name}: done", file=sys.stderr, flush=True)
+    return {"devices": MESH_D, **parts}
+
+
 def _write(name: str, record: dict):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
     with open(path, "w") as fh:
@@ -719,9 +923,16 @@ def _write(name: str, record: dict):
 
 
 def main(which=()):
-    """Writes every file; `multi` or `synth` as the only argument writes
-    torch_golden_multi.json or torch_golden_synth.json alone (`multi-part
-    NAME` prints one part)."""
+    """Writes every file but the mesh records; `multi`, `synth` or `mesh`
+    as the only argument writes torch_golden_multi.json,
+    torch_golden_synth.json or torch_golden_mesh.json alone (`multi-part
+    NAME` and `mesh-part NAME` print one part)."""
+    if which[:1] == ("mesh-part",):
+        print(json.dumps(MESH_PARTS[which[1]]()))
+        return
+    if "mesh" in which:
+        _write("torch_golden_mesh.json", mesh_golden())
+        return
     if which[:1] == ("multi-part",):
         if which[1] in NO_CACHE_PARTS:
             import jax
