@@ -15,11 +15,11 @@ halo2_tpu_torch/native, then:
            beside its bound: `ms` around 20 launches from Python,
            `device_ms` from the same 20 launches replayed from a CUDA
            graph.  The chain entry
-           points (pow / inv, the prefix-product scan, the MSM's bucket
+           points (pow, inv, the prefix-product scan, the MSM's bucket
            scan, the Horner combine, the scalar ladder) are held to their
            composed plain versions at the proofs' shapes and at edge cases,
-           and each public function is shown to make its one launch (three
-           for the prefix-product scan); K2 and K3 also at the chunk shapes
+           and each public function is shown to make its one launch; K2
+           and K3 also at the chunk shapes
            the streamed extended inverse transform of the large path feeds
            them;
   golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
@@ -35,7 +35,8 @@ halo2_tpu_torch/native, then:
            launch count set to 0 just before and read just after (all
            counters printed, with the K1 and K4 family totals; the MSM's
            bucket scan launched once a window group, the Horner kernel once
-           a call, the 1:1 scan step `add_mixed_packed` never); a proof
+           a call, the 1:1 scan step `add_mixed_packed` and `pow` never:
+           every inversion is `inv`'s); a proof
            with one byte flipped and a wrong instance must be rejected;
   args     the same for AllArgsCircuit over every usable row of 2^k (gate
            with a compressed selector, permutation, a shared-table logup
@@ -49,7 +50,10 @@ halo2_tpu_torch/native, then:
            circuit data, vk and instance 0's witness written and read back
            into a fresh Params and ProvingKey, create_proof_from_witness
            against create_proof on the in-memory key (same seed, SHPLONK),
-           and the reloaded vk verifying the proof;
+           and the reloaded vk verifying the proof; the loads are the
+           `load` path, with the counts set to 0 just before and read just
+           after (`pow`, the square roots of the params' points, at least
+           once);
   synth    BlockMulChainCircuit (a chain of mul gates, a step a row, in 64
            regions handed to layouter.assign_regions) at 2^k rows: keygen
            on the card, then its regions synthesized by forked workers
@@ -515,28 +519,78 @@ def _pow_products(e: int) -> int:
 
 
 def _field_pow(sh, gen, device) -> dict:
-    """pow_static / inv: one launch, against the composed plain loop."""
+    """pow_static: one launch, against the composed plain loop; timed at
+    the square roots of a params file's points (Fq, (q + 1) / 4, 2^k of
+    them: `points_from_bytes` at load)."""
+    Fq = fq(device)
+    n, e_sqrt = sh["n"], (Fq.p + 1) // 4
+    a = _rand_field(Fq, (n,), gen)
+    want, plain_ms = profiling.timed(lambda: Fq.plain_pow_static(a, e_sqrt))
+    _expect_launches("pow_static", lambda: Fq.pow_static(a, e_sqrt),
+                     {"pow": 1})
+    variant = {"variant": f"sqrt/Fq n={n}", "n": n,
+               "max_abs_err": _max_err(Fq.pow_static(a, e_sqrt), want),
+               **_times(lambda: Fq.pow_static(a, e_sqrt), plain_ms),
+               **_bounds(2 * N_LIMBS * WORD * n, _pow_products(e_sqrt) * n)}
+    # edge cases: 0, 1, p - 1 among the inputs, exponents 0, 1, 2, 3 and
+    # (p + 1) / 4, one element, a batch of two dims
+    worst = 0
+    for F in (fr(device), fq(device)):
+        a = _rand_field(F, (1000,), gen)
+        for e in (0, 1, 2, 3, (F.p + 1) // 4):
+            worst = max(worst, _max_err(F.pow_static(a, e),
+                                        F.plain_pow_static(a, e)))
+            worst = max(worst, _max_err(F.pow_static(a[:, 5], e),
+                                        F.plain_pow_static(a[:, 5:6], e)
+                                        [:, 0]))
+            b = a[:, :24].reshape(N_LIMBS, 4, 6)
+            worst = max(worst, _max_err(F.pow_static(b, e),
+                                        F.plain_pow_static(b, e)))
+    variant["max_abs_err"] = max(variant["max_abs_err"], worst)
+    return _entry("field_pow", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/limbs.py:533 pow_static (lax.scan)",
+                  [variant], f"sqrt/Fq (16, {n})")
+
+
+# multiply-adds of one inversion by the kernel: 25 batches of the two
+# matrix updates (9 limbs; 6 products a limb for (d, e), 4 for (f, g), and
+# 2 for the multiples of p), then one Montgomery product.  The divsteps'
+# shifts and logic run beside them on the integer ALUs and are not
+# counted, so the bound is low.
+INV_MADS = (cuda_ops.INV_BATCHES * (cuda_ops.INV_LIMBS * (6 + 4) + 2)
+            + MADS_MUL)
+
+
+def _field_inv(sh, gen, device) -> dict:
+    """inv: one launch of the safegcd kernel, against Fermat's plain
+    power; beside it the Fermat power's kernel (pow_static(p - 2), the
+    kernel inv took over from) at the same inputs."""
     variants = []
-    # the proof's shape (one element: batch_inverse's total) and 2^n
+    # the proof's shape (one element: batch_inverse's total) and 2^k
     for F, n in ((fr(device), 1), (fr(device), sh["n"]), (fq(device), 1)):
         a = _rand_field(F, (n,), gen, specials=False)
         a[0] |= 1                                # never zero
         want, plain_ms = profiling.timed(
             lambda: F.plain_pow_static(a, F.p - 2))
-        _expect_launches(f"{F.name}.inv", lambda: F.inv(a), {"pow": 1})
-        worst = _max_err(F.inv(a), want)
+        _expect_launches(f"{F.name}.inv", lambda: F.inv(a), {"inv": 1})
+        fermat = _times(lambda: F.pow_static(a, F.p - 2), plain_ms)
         variants.append({
-            "variant": f"inv/{F.name} n={n}", "n": n, "max_abs_err": worst,
+            "variant": f"inv/{F.name} n={n}", "n": n,
+            "max_abs_err": max(_max_err(F.inv(a), want),
+                               _max_err(F.pow_static(a, F.p - 2), want)),
             **_times(lambda: F.inv(a), plain_ms),
-            **_bounds(2 * N_LIMBS * WORD * n, _pow_products(F.p - 2) * n)})
-    # edge cases: 0, 1, p - 1 among the inputs, exponents 0, 1, 2, p - 2,
-    # one element, a batch of two dims
+            "fermat_pow_ms": fermat["ms"],
+            "fermat_pow_device_ms": fermat["device_ms"],
+            **dict(zip(("bound_ms", "bound_by"),
+                       _bound(2 * N_LIMBS * WORD * n, INV_MADS * n)))})
+    # edge cases: 0, 1, p - 1, R mod p and R^-1 mod p among the inputs,
+    # one element, one column view, a batch of two dims
     worst = 0
     for F in (fr(device), fq(device)):
         a = _rand_field(F, (1000,), gen)
-        for e in (0, 1, 2, 3, F.p - 2):
-            worst = max(worst, _max_err(F.pow_static(a, e),
-                                        F.plain_pow_static(a, e)))
+        a[:, 3] = F.encode_scalar(F.R)
+        a[:, 4] = F.encode_scalar(F.R_inv)
+        worst = max(worst, _max_err(F.inv(a), F.plain_pow_static(a, F.p - 2)))
         if F.decode(F.inv(a[:, :1])) != [0]:
             raise AssertionError(f"{F.name}.inv(0) is not 0")
         worst = max(worst, _max_err(F.inv(a[:, 5]),
@@ -545,46 +599,67 @@ def _field_pow(sh, gen, device) -> dict:
         b = a[:, :24].reshape(N_LIMBS, 4, 6)
         worst = max(worst, _max_err(F.inv(b),
                                     F.plain_pow_static(b, F.p - 2)))
+        wide = _rand_field(F, (2 * 501,), gen)
+        col = wide.reshape(N_LIMBS, 501, 2)[:, :, 1]        # a strided view
+        worst = max(worst, _max_err(F.inv(col), F.plain_pow_static(
+            col.contiguous(), F.p - 2)))
     variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
-    return _entry("field_pow", "halo2_tpu_torch/csrc/field_kernels.cu",
-                  "halo2_tpu/fields/limbs.py:533 pow_static (lax.scan)",
+    return _entry("field_inv", "halo2_tpu_torch/csrc/field_kernels.cu",
+                  "halo2_tpu/fields/limbs.py:533 pow_static(p - 2) (inv)",
                   variants, "inv/Fr (16, 1)")
 
 
 def _scan_products(n: int) -> int:
-    """Products the three passes make on n elements."""
-    L, C, per = cuda_ops.scan_plan(n)
-    hs = sum(cuda_ops.SCAN_THREADS - off for off in
-             (1 << i for i in range(cuda_ops.SCAN_THREADS.bit_length() - 1)))
-    return (n - C) + 2 * C + hs + (n - L)
+    """Products the scan kernel makes on n elements (cuda_ops.scan_plan),
+    printed as `kernel_products` beside the bound, which counts the n - 1
+    products the prefix product needs; the look-back's windows aside
+    (they depend on the blocks' timing):
+    a tile's runs (V - 1 a thread), its warps' shuffle scans (31 + 30 +
+    28 + 24 + 16 a warp), warp 0's scan of the warps' totals (31 + 30 +
+    28), a prefix within the tile and the fold (1 + V a thread), and past
+    the first tile a product a thread for the earlier tiles and one for
+    the tile's inclusive prefix."""
+    V, tiles = cuda_ops.scan_plan(n)
+    block, warps = cuda_ops.SCAN_BLOCK, cuda_ops.SCAN_BLOCK // 32
+    per_tile = (block * (V - 1) + warps * (31 + 30 + 28 + 24 + 16)
+                + (31 + 30 + 28) + block * (1 + V))
+    return tiles * per_tile + (tiles - 1) * (block + 1)
 
 
 def _field_scan(shs, gen, device) -> dict:
-    """prefix_mul: three launches, against the composed blocked scan."""
+    """prefix_mul: one launch, against the composed blocked scan."""
     sh = shs[0]
     variants = []
     F = fr(device)
     lengths = [sh["n"], 4 * sh["n"]]
     for x in shs:
         lengths += [m for m in x["prefix_lengths"] if m not in lengths]
+    large = _shapes(LARGE_K, "large", MulChainCircuit(1))["prefix_lengths"]
+    lengths += [m for m in large if m not in lengths]
     for n in lengths:
         a = _rand_field(F, (n,), gen)
         for reverse in (False, True):
             want, plain_ms = profiling.timed(
                 lambda: F.plain_prefix_mul(a, reverse))
             _expect_launches("prefix_mul", lambda: F.prefix_mul(a, reverse),
-                             {"scan": 3})
+                             {"scan": 1})
             variants.append({
                 "variant": f"{'reverse' if reverse else 'forward'} n={n}",
-                "n": n, "chunks": cuda_ops.scan_plan(n)[:2],
+                "n": n, "plan": cuda_ops.scan_plan(n),
                 "max_abs_err": _max_err(F.prefix_mul(a, reverse), want),
                 **_times(lambda: F.prefix_mul(a, reverse), plain_ms),
-                **_bounds(2 * N_LIMBS * WORD * n, _scan_products(n))})
-    # edge cases: n = 1, an n no multiple of the chunk, n below and above
-    # the chunk count, Fq, a strided view (every other element, a column)
+                **_bounds(2 * N_LIMBS * WORD * n, n - 1),
+                "kernel_products": _scan_products(n)})
+        del a, want
+    # edge cases: n = 1, n at and around a tile, an n no multiple of a
+    # tile, Fq, a strided view (every other element, a column), and each
+    # run length the plan picks (V = 2, 4, 8 from 2^16, 2^17, 2^18 on)
+    # with a last tile of one element and of all but one
     worst = 0
     for F in (fr(device), fq(device)):
-        for n in (1, 2, 1000, 4096, 4097, sh["n"] + 123):
+        for n in (1, 2, 255, 256, 257, 1000, 2048, 4097, sh["n"] + 123,
+                  (1 << 16) + 1, (1 << 16) + 511, (1 << 17) + 1,
+                  (1 << 17) + 1023, (1 << 18) + 1, (1 << 18) + 2047):
             a = _rand_field(F, (n,), gen)
             for reverse in (False, True):
                 worst = max(worst, _max_err(F.prefix_mul(a, reverse),
@@ -915,6 +990,7 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
                _k2_butterfly(shs, gen, device, large_ext_k),
                _k3_mul_tiled(shs, gen, device, large_ext_k),
                _field_pow(sh, gen, device),
+               _field_inv(sh, gen, device),
                _field_scan(shs, gen, device),
                _k4_point_op(sh, gen, device, pts),
                _k5_packed(sh, gen, device, pts),
@@ -1025,11 +1101,13 @@ def _reset_counts():
 
 
 # the kernel families of the TPU kernels K1 and K4, by launch counter
-FAMILIES = {"K1": ("binop", "pow", "scan"),
+FAMILIES = {"K1": ("binop", "pow", "inv", "scan"),
             "K4": ("point_op", "horner", "ladder")}
 FAMILY_LIMITS_K16 = {"K1": 6000, "K4": 1500}
-# the 1:1 port of the Pallas scan step: the bucket scan took its place
-OFF_PROVE_PATH = ("add_mixed_packed",)
+# kernels no proof path launches: the 1:1 port of the Pallas scan step
+# (the bucket scan took its place) and pow (the square roots of a params
+# file's points, on the load path; every inversion goes to inv)
+OFF_PROVE_PATH = ("add_mixed_packed", "pow")
 
 
 def _rejects(pv, vk, instances_list, proof, use_gwc=True) -> bool:
@@ -1174,11 +1252,13 @@ def phase_args(k: int, seed: int, device) -> dict:
                   [[[circuit.instance()]]], FlatFloorPlanner)
 
 
-def _file_round_trip(circuit, instances, seed, device):
+def _file_round_trip(circuit, instances, seed, device, load_launches):
     """`after` of the multi path: params, circuit data, vk and the
     witness of `circuit` to files and back; the proof from the witness
     file on the reloaded key against create_proof on the in-memory one
-    (SHPLONK, one seed), and the reloaded vk verifying it."""
+    (SHPLONK, one seed), and the reloaded vk verifying it.  The loads are
+    the load path: their launches go into `load_launches`, and the
+    square roots of the params' points must launch pow."""
     def run(params, vk, pk, proof):
         t0 = time.time()
         with tempfile.TemporaryDirectory() as tmp:
@@ -1191,10 +1271,14 @@ def _file_round_trip(circuit, instances, seed, device):
                            floor_planner=FlatFloorPlanner)
             sizes = {f: os.path.getsize(p_) for f, p_ in path.items()}
             written = time.time()
+            _reset_counts()                  # the load path starts here
             params2 = h2io.load_params(path["params.bin"], device=device)
             vk2, pk2 = h2io.load_circuit_data(params2, path["cd.npz"])
             vk3 = h2io.load_vk(params2, circuit, path["vk.bin"],
                                floor_planner=FlatFloorPlanner)
+            torch.cuda.synchronize()
+            load_launches.update(cuda_ops.launch_counts)
+            load_launches.update(cuda_point.launch_counts)  # and ends here
             loaded = time.time()
             from_file = create_proof_from_witness(
                 params2, pk2, instances, path["witness.bin"], seed=seed,
@@ -1211,8 +1295,12 @@ def _file_round_trip(circuit, instances, seed, device):
         if not verify_proof(params2.verifier(1), vk3, instances, from_file,
                             use_gwc=False):
             raise AssertionError("multi: the reloaded vk rejected the proof")
+        if load_launches["pow"] < 1:
+            raise AssertionError("multi: loading the params launched no pow")
         return {"file_round_trip": {
             "bytes": sizes, "bytes_equal": True, "verified": True,
+            "load_launches": {k_: v for k_, v in load_launches.items()
+                              if v},
             "seconds": {"write": round(written - t0, 3),
                         "load": round(loaded - written, 3),
                         "create_proof_from_witness": round(proved - loaded,
@@ -1220,9 +1308,10 @@ def _file_round_trip(circuit, instances, seed, device):
     return run
 
 
-def phase_multi(k: int, seed: int, device) -> dict:
+def phase_multi(k: int, seed: int, device):
     """Two AllArgsCircuit instances over all usable rows in one SHPLONK
-    proof, then the file round trip of instance 0."""
+    proof, then the file round trip of instance 0: the launches of the
+    proof's path and of the load path."""
     rows = AllArgsCircuit.usable_rows(k)
     circuits = [AllArgsCircuit(rows, seed=s) for s in MULTI_SEEDS]
     instances = [[[c.instance()]] for c in circuits]
@@ -1230,13 +1319,15 @@ def phase_multi(k: int, seed: int, device) -> dict:
     circuits[0].configure(cs)
     cs.chunk_lookups()
     cs.chunk_shuffles()
-    return _drive("multi", k, seed, device, circuits, instances,
-                  FlatFloorPlanner, use_gwc=False,
-                  extra={"witness_seeds": list(MULTI_SEEDS),
-                         "shplonk_sets": {str(list(r)): c for r, c in
-                                          _shplonk_sets(cs, 2).items()}},
-                  after=_file_round_trip(circuits[0], instances[0], seed + 2,
-                                         device))
+    load_launches = {}
+    launches = _drive("multi", k, seed, device, circuits, instances,
+                      FlatFloorPlanner, use_gwc=False,
+                      extra={"witness_seeds": list(MULTI_SEEDS),
+                             "shplonk_sets": {str(list(r)): c for r, c in
+                                              _shplonk_sets(cs, 2).items()}},
+                      after=_file_round_trip(circuits[0], instances[0],
+                                             seed + 2, device, load_launches))
+    return launches, load_launches
 
 
 # the synth path: BlockMulChainCircuit's blocks (regions handed to the
@@ -1492,7 +1583,7 @@ def _card_mesh() -> Mesh:
 
 # the wrappers whose shapes the mesh changes (shard shapes, the local
 # transforms of the four-step, the tree over the shards' window totals):
-# each call on the mesh path records its shapes; the grand products' pow
+# each call on the mesh path records its shapes; the grand products' inv
 # and scan and the setup's ladder run whole on the first device, at the
 # args path's shapes
 MESH_RECORDED = (
@@ -1794,7 +1885,7 @@ def phase_mesh(k: int, seed: int, device) -> dict:
 
 LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "mul_tiled": "mul_tiled", "field_pow": "pow",
-              "field_scan": "scan", "point_op": "point_op",
+              "field_inv": "inv", "field_scan": "scan", "point_op": "point_op",
               "add_mixed_packed": "add_mixed_packed",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder",
@@ -1830,7 +1921,7 @@ def main(argv=None) -> int:
     if "args" in phases:
         paths["args"] = phase_args(args.k, args.seed, device)
     if "multi" in phases:
-        paths["multi"] = phase_multi(args.k, args.seed, device)
+        paths["multi"], paths["load"] = phase_multi(args.k, args.seed, device)
     if "synth" in phases:
         paths["synth"] = phase_synth(args.k, args.seed, device)
     if "large" in phases:

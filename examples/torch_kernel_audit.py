@@ -11,7 +11,10 @@ takes on 10^6 elements at the card's integer rate.  The field product of
 the point formulas is not inlined (csrc/point.cuh), so point_add_kernel's
 listing holds one product body that its 12 products call: a static count,
 not a count per point.  Registers, stack and blocks per SM of the point kernels are in
-chip_smoke.py's `env` and `kernels` lines.
+chip_smoke.py's `env` and `kernels` lines.  `code` gives the size in SASS
+instructions of the chain kernels of the batch inversion (Fr): inv_kernel,
+pow_kernel, scan_kernel at each run length V and the scan's product
+scan_mul, where the tree has them.
 Prints one JSON line.  Needs one CUDA device and the CUDA toolkit.
 """
 
@@ -86,8 +89,15 @@ def main() -> int:
                            c["imad"] * 1e6 / rate["mad_per_s"] * 1e9,
                        "ns_per_1e6_elements_at_model":
                            model * 1e6 / rate["mad_per_s"] * 1e9}
+    code = sass_counts(build.load("field_kernels")._name, {
+        "inv_kernel_fr": "inv_kernelILi0E",
+        "pow_kernel_fr": "pow_kernelILi0E",
+        "scan_mul_fr": "scan_mulILi0E",
+        **{f"scan_kernel_fr_v{v}": f"scan_kernelILi0ELi{v}E"
+           for v in (1, 2, 4, 8)}})
     print(json.dumps({"kernel_audit": {
-        "card": smi, "int_rate": rate, "sass": audit}}), flush=True)
+        "card": smi, "int_rate": rate, "sass": audit,
+        "code": {name: c["all"] for name, c in code.items()}}}), flush=True)
     return 0
 
 

@@ -16,7 +16,7 @@ device's busy share of the wall time, the ten kernels with the most
 device time, the launches and device time of all
 kernels and of PyTorch's elementwise kernels (names holding
 "elementwise"), and with --show every kernel whose name contains TEXT
-(e.g. `scan_` for the three passes of the prefix-product scan).  With the
+(e.g. `scan_` for the prefix-product scan, `inv_` for the inversion).  With the
 default circuit it uses only functions every tree of the port has, so it
 can be copied into an older tree to compare.  Needs one CUDA device.
 """

@@ -1,7 +1,7 @@
 // Field kernels: elementwise binary ops, the NTT butterfly, the
-// shared-table product, a power by a static exponent, and the three passes
-// of the prefix-product scan.  One thread per field element (per chunk in
-// the scan), grid-stride loops, any element count (the ragged edge is a
+// shared-table product, a power by a static exponent, the inversion, and
+// the prefix-product scan.  One thread per field element (a block per tile
+// in the scan), grid-stride loops, any element count (the ragged edge is a
 // bounds check, not padding).
 // Plain C interface: every entry point launches on the given stream and
 // returns cudaGetLastError() as an int.
@@ -106,8 +106,9 @@ struct Exponent {
 // significant bit first, in registers.  One element a thread; the exponent
 // is the same for every thread, so the branch never diverges.  Bound by
 // operations: a 254-bit exponent is some 380 dependent products of 264
-// integer multiply-adds, on 128 bytes moved an element; at a few elements
-// (an inversion) it is one thread's latency.
+// integer multiply-adds, on 128 bytes moved an element.  Its caller is the
+// square root (q + 1) / 4 of a params file's points (curves/g1.py
+// points_from_bytes); inversions go to inv_kernel.
 template <int F>
 __global__ void pow_kernel(const uint32_t* __restrict__ a, int64_t a_ls,
                            int64_t a_es, uint32_t* __restrict__ out,
@@ -137,83 +138,490 @@ __global__ void pow_kernel(const uint32_t* __restrict__ a, int64_t a_ls,
   }
 }
 
-// The prefix-product scan, in three passes.  Stands for
-// halo2_tpu/fields/limbs.py:559 prefix_mul (two lax.scans).  Logical
-// element j of the input sits at a + j*a_es and its prefix goes to
-// out + j*o_es; a reverse scan is the same kernels given pointers to the
-// last element and negated element strides.  The n elements are cut into
-// C chunks of L (the last one may be short).  Bound by the latency of the
-// dependent products: L + 2 * ceil(C / SCAN_THREADS) + log2(SCAN_THREADS)
-// of them in a row, against 256 bytes an element moved.
-constexpr int SCAN_THREADS = 512;   // the one block of pass 2
-constexpr int SCAN_CHUNK_THREADS = 32;
+// ---------------------------------------------------------------------------
+// inv: a^-1 by safegcd
+// ---------------------------------------------------------------------------
+//
+// Stands for halo2_tpu/fields/limbs.py:533 pow_static with e = p - 2, the
+// reference's inversion (a lax.scan of square and multiply).  Fermat's
+// chain is 379 dependent Montgomery products on one thread; here the
+// inverse is Bernstein and Yang's divsteps ("Fast constant-time gcd
+// computation and modular inversion", 2019) in the 32-bit form of
+// libsecp256k1's modinv32: signed 30-bit limbs, 30 divsteps a batch on
+// 32-bit words that build a 2x2 transition matrix, the matrix applied to
+// (f, g) and to (d, e), a fixed number of batches, no branch on the data.
+//
+// The batch count: Theorem 11.2 of the paper bounds the divsteps from
+// delta = 1 to g = 0 by floor((49d + 57) / 17) for f^2 + 4g^2 <= 5 * 2^(2d),
+// d >= 46.  Both moduli and every canonical input are below 2^254, so
+// d = 254 and 735 divsteps suffice: 25 batches of 30 (750).  The count
+// and the constants come from the wrapper (cuda_ops.inv_constants).
+//
+// The input is x = a R (Montgomery form, canonical); the divsteps give
+// y = x^-1 = a^-1 R^-1, and one Montgomery product by R^3 mod p brings it
+// to a^-1 R.  0 has no inverse and gives 0, as Fermat's power does.
+// Bound by the latency of one thread's chain: some 750 divsteps of a few
+// 32-bit operations each, against 128 bytes an element moved.
 
-// Pass 1: one thread a chunk keeps the running product in registers,
-// writes the chunk's prefixes and its total.
-template <int F>
-__global__ void __launch_bounds__(SCAN_CHUNK_THREADS)
-    scan_chunks_kernel(const uint32_t* __restrict__ a, int64_t a_ls,
-                       int64_t a_es, uint32_t* __restrict__ out,
-                       int64_t o_ls, int64_t o_es,
-                       uint32_t* __restrict__ totals, int64_t n, int64_t L,
-                       int64_t C) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int64_t j0 = c * L;
-  const int64_t j1 = j0 + L < n ? j0 + L : n;
-  Fe acc = load_fe(a, a_ls, j0 * a_es);
-  store_fe(out, o_ls, j0 * o_es, acc);
-  for (int64_t j = j0 + 1; j < j1; ++j) {
-    acc = mont_mul<F>(acc, load_fe(a, a_ls, j * a_es));
-    store_fe(out, o_ls, j * o_es, acc);
+constexpr int32_t M30 = 0x3FFFFFFF;
+constexpr int S30_LIMBS = 9;  // 9 x 30 = 270 bits hold 256 and a sign
+
+struct S30 {
+  int32_t v[S30_LIMBS];
+};
+
+struct InvConsts {
+  int32_t p30[S30_LIMBS];  // p in 30-bit limbs
+  uint32_t pinv30;         // p^-1 mod 2^30
+  uint32_t r3[NW];         // R^3 mod p, canonical words
+  int32_t batches;         // batches of 30 divsteps
+};
+
+struct Trans {
+  int32_t u, v, q, r;  // the 2x2 matrix of 30 divsteps, scaled by 2^30
+};
+
+// 8 words (< 2^256) -> 9 limbs of 30 bits
+__device__ __forceinline__ S30 to_s30(const Fe& x) {
+  S30 r;
+#pragma unroll
+  for (int i = 0; i < S30_LIMBS; ++i) {
+    const int bit = 30 * i, w = bit >> 5, s = bit & 31;
+    uint32_t val = x.w[w] >> s;
+    if (s > 2 && w + 1 < NW) val |= x.w[w + 1] << (32 - s);
+    r.v[i] = (int32_t)val & M30;
   }
-  store_fe(totals, C, c, acc);
+  return r;
 }
 
-// Pass 2: one block turns the C chunk totals, in place, into exclusive
-// prefix products.  Each thread folds a run of `per` totals in registers,
-// the block scans the runs' products in shared memory (Hillis-Steele),
-// and each thread writes its run's exclusive prefixes.
-template <int F>
-__global__ void __launch_bounds__(SCAN_THREADS)
-    scan_totals_kernel(uint32_t* __restrict__ totals, int64_t C,
-                       int64_t per) {
-  __shared__ Fe run[SCAN_THREADS];
-  const int t = threadIdx.x;
-  const int64_t c0 = t * per;
-  const int64_t c1 = c0 + per < C ? c0 + per : C;
-  Fe acc = one_mont<F>();
-  for (int64_t c = c0; c < c1; ++c) acc = mont_mul<F>(acc, load_fe(totals, C, c));
-  run[t] = acc;
-  __syncthreads();
-  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
-    Fe v = run[t];
-    if (t >= off) v = mont_mul<F>(run[t - off], v);
-    __syncthreads();
-    run[t] = v;
-    __syncthreads();
+// 9 limbs in [0, 2^30) of a value below 2^256 -> 8 words
+__device__ __forceinline__ Fe from_s30(const S30& a) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const int bit = 32 * k, i = bit / 30, s = bit % 30;  // s <= 14
+    r.w[k] = ((uint32_t)a.v[i] >> s) | ((uint32_t)a.v[i + 1] << (30 - s));
   }
-  Fe ex = t ? run[t - 1] : one_mont<F>();
-  for (int64_t c = c0; c < c1; ++c) {
-    const Fe x = load_fe(totals, C, c);
-    store_fe(totals, C, c, ex);
-    ex = mont_mul<F>(ex, x);
+  return r;
+}
+
+// 30 divsteps on the low words of f (odd) and g; returns the new delta.
+// c1 masks (delta > 0), c2 masks (g odd): where both hold, (f, g) becomes
+// (g, (g - f) / 2) and delta 1 - delta, else g becomes (g + (g odd) f) / 2
+// and delta 1 + delta.
+__device__ __forceinline__ int32_t divsteps_30(int32_t delta, uint32_t f,
+                                               uint32_t g, Trans& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    uint32_t c1 = (uint32_t)((-delta) >> 31);
+    const uint32_t c2 = 0u - (g & 1u);
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;
+    delta = (int32_t)(((uint32_t)delta ^ c1) - c1) + 1;
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t.u = (int32_t)u;
+  t.v = (int32_t)v;
+  t.q = (int32_t)q;
+  t.r = (int32_t)r;
+  return delta;
+}
+
+// (d, e) <- t (d, e) / 2^30 mod p, with multiples of p added so that the
+// division is exact; d and e stay in (-2p, p)
+__device__ __forceinline__ void update_de(S30& d, S30& e, const Trans& t,
+                                          const InvConsts& c) {
+  const int32_t u = t.u, v = t.v, q = t.q, r = t.r;
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (u & sd) + (v & se);
+  int32_t me = (q & sd) + (r & se);
+  int64_t cd = (int64_t)u * d.v[0] + (int64_t)v * e.v[0];
+  int64_t ce = (int64_t)q * d.v[0] + (int64_t)r * e.v[0];
+  md -= (int32_t)((c.pinv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+  me -= (int32_t)((c.pinv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+  cd += (int64_t)c.p30[0] * md;
+  ce += (int64_t)c.p30[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < S30_LIMBS; ++i) {
+    cd += (int64_t)u * d.v[i] + (int64_t)v * e.v[i] + (int64_t)c.p30[i] * md;
+    ce += (int64_t)q * d.v[i] + (int64_t)r * e.v[i] + (int64_t)c.p30[i] * me;
+    d.v[i - 1] = (int32_t)cd & M30;
+    cd >>= 30;
+    e.v[i - 1] = (int32_t)ce & M30;
+    ce >>= 30;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact
+__device__ __forceinline__ void update_fg(S30& f, S30& g, const Trans& t) {
+  const int32_t u = t.u, v = t.v, q = t.q, r = t.r;
+  int64_t cf = (int64_t)u * f.v[0] + (int64_t)v * g.v[0];
+  int64_t cg = (int64_t)q * f.v[0] + (int64_t)r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < S30_LIMBS; ++i) {
+    cf += (int64_t)u * f.v[i] + (int64_t)v * g.v[i];
+    cg += (int64_t)q * f.v[i] + (int64_t)r * g.v[i];
+    f.v[i - 1] = (int32_t)cf & M30;
+    cf >>= 30;
+    g.v[i - 1] = (int32_t)cg & M30;
+    cg >>= 30;
+  }
+  f.v[8] = (int32_t)cf;
+  g.v[8] = (int32_t)cg;
+}
+
+__device__ __forceinline__ void carry_s30(S30& r) {
+#pragma unroll
+  for (int i = 0; i < S30_LIMBS - 1; ++i) {
+    r.v[i + 1] += r.v[i] >> 30;
+    r.v[i] &= M30;
   }
 }
 
-// Pass 3: every element past the first chunk takes its chunk's exclusive
-// prefix in; coalesced over the batch axis.
+// r in (-2p, p), negated where `sign` is negative -> [0, p), limbs in
+// [0, 2^30)
+__device__ __forceinline__ void normalize_s30(S30& r, int32_t sign,
+                                              const InvConsts& c) {
+  int32_t cond_add = r.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < S30_LIMBS; ++i) r.v[i] += c.p30[i] & cond_add;
+  const int32_t cond_neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < S30_LIMBS; ++i) r.v[i] = (r.v[i] ^ cond_neg) - cond_neg;
+  carry_s30(r);
+  cond_add = r.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < S30_LIMBS; ++i) r.v[i] += c.p30[i] & cond_add;
+  carry_s30(r);
+}
+
 template <int F>
-__global__ void scan_fold_kernel(uint32_t* __restrict__ out, int64_t o_ls,
-                                 int64_t o_es,
-                                 const uint32_t* __restrict__ excl,
-                                 int64_t n, int64_t L, int64_t C) {
+__global__ void inv_kernel(const uint32_t* __restrict__ a, int64_t a_ls,
+                           int64_t a_es, uint32_t* __restrict__ out,
+                           int64_t n, InvConsts c) {
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = L + (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += step) {
-    const Fe x = load_fe(out, o_ls, j * o_es);
-    store_fe(out, o_ls, j * o_es, mont_mul<F>(x, load_fe(excl, C, j / L)));
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    S30 d, e, f, g = to_s30(load_fe(a, a_ls, i * a_es));
+#pragma unroll
+    for (int k = 0; k < S30_LIMBS; ++k) {
+      d.v[k] = 0;
+      e.v[k] = 0;
+      f.v[k] = c.p30[k];
+    }
+    e.v[0] = 1;
+    int32_t delta = 1;
+#pragma unroll 1
+    for (int b = 0; b < c.batches; ++b) {
+      Trans t;
+      delta = divsteps_30(delta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+      update_de(d, e, t, c);
+      update_fg(f, g, t);
+    }
+    // g is 0 and f = +-gcd = +-1 (f = p where the input was 0, and d = 0)
+    normalize_s30(d, f.v[8], c);
+    Fe r3;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) r3.w[k] = c.r3[k];
+    store_fe(out, n, i, mont_mul<F>(from_s30(d), r3));
   }
+}
+
+// ---------------------------------------------------------------------------
+// prefix_mul: one pass of tiles with a decoupled look-back
+// ---------------------------------------------------------------------------
+//
+// Stands for halo2_tpu/fields/limbs.py:559 prefix_mul (two lax.scans).
+// Logical element j of the input sits at a + j*a_es and its prefix goes
+// to out + j*o_es; a reverse scan is the same kernel given pointers to the
+// last element and negated element strides.
+//
+// The n elements are cut into tiles of SCAN_BLOCK * V consecutive logical
+// elements, one a block, taken in the order blocks claim them (an atomic
+// ticket, so every earlier tile's block is already running).  A tile:
+//   1. is loaded coalesced (element v*SCAN_BLOCK + t by thread t) into
+//      shared memory, a plane of words for each of the 8 words;
+//   2. each thread turns its run of V consecutive elements into inclusive
+//      prefixes, in place;
+//   3. each warp scans its 32 runs' totals by __shfl_up_sync (5 levels),
+//      warp 0 the 8 warps' totals (3 levels): the tile's aggregate, which
+//      it publishes at once with flag AGGREGATE;
+//   4. the look-back: every thread of the block takes one earlier tile,
+//      waits for its flag, and the block multiplies their values up to the
+//      nearest tile whose flag says PREFIX (a shuffle tree in each warp
+//      that holds one of them, then one across the warps; one product, or
+//      none, where the tile just before has its prefix); 256 tiles a
+//      window, window after window until one holds a PREFIX; the tile's
+//      inclusive prefix goes out with flag PREFIX;
+//   5. each thread multiplies its run by the product of everything before
+//      it, and the tile goes back out coalesced.
+// The field product is commutative, so the order of the products does not
+// matter, and the canonical results equal the plain version's.
+//
+// What bounds it: the latency of the chain of dependent products at the
+// proofs' lengths, the integer rate at 2^22.  One launch (and a memset of
+// the flags) whatever n is, every pass over the data one block a tile,
+// the tile's chain (V - 1) + 5 + 3 + the look-back + 2 + V products, the
+// work 2 + 5/V products an element.  The runs live in shared memory and
+// every product of the kernel goes through a few call sites of scan_mul,
+// so the code stays small whatever V is.
+
+constexpr int SCAN_BLOCK = 256;
+constexpr int SCAN_WARPS = SCAN_BLOCK / 32;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+constexpr uint32_t FLAG_AGGREGATE = 1;
+constexpr uint32_t FLAG_PREFIX = 2;
+
+// The scan's state, one buffer a call of 17 * tiles + 1 words: the tiles'
+// aggregates (8 words each, from word 0), their inclusive prefixes (from
+// 8 * tiles), their flags (from 16 * tiles) and the ticket counter (word
+// 17 * tiles).  The flags and the counter are zeroed before each launch.
+
+template <int F>
+__device__ __noinline__ Fe scan_mul(Fe a, Fe b) {
+  return mont_mul<F>(a, b);
+}
+
+__device__ __forceinline__ Fe shfl_up_fe(const Fe& x, int d) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = __shfl_up_sync(FULL_MASK, x.w[k], d);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_down_fe(const Fe& x, int d) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    r.w[k] = __shfl_down_sync(FULL_MASK, x.w[k], d);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_fe(const Fe& x, int src) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = __shfl_sync(FULL_MASK, x.w[k], src);
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// 8 words of the state (32-byte aligned), read from L2
+__device__ __forceinline__ Fe ld_words(const uint32_t* p) {
+  const uint4 lo = __ldcg(reinterpret_cast<const uint4*>(p));
+  const uint4 hi = __ldcg(reinterpret_cast<const uint4*>(p) + 1);
+  Fe r;
+  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
+  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
+  return r;
+}
+
+__device__ __forceinline__ void st_words(uint32_t* p, const Fe& x) {
+  reinterpret_cast<uint4*>(p)[0] = make_uint4(x.w[0], x.w[1], x.w[2], x.w[3]);
+  reinterpret_cast<uint4*>(p)[1] = make_uint4(x.w[4], x.w[5], x.w[6], x.w[7]);
+}
+
+// Tile element i in shared memory: word k at planes[k * plane + slot(i)],
+// one pad word every 32 so that both the coalesced order (i = v *
+// SCAN_BLOCK + t) and the runs' order (i = t * V + v) are free of bank
+// conflicts.
+__device__ __forceinline__ int tile_slot(int i) { return i + (i >> 5); }
+
+__device__ __forceinline__ Fe ld_tile(const uint32_t* planes, int plane,
+                                      int i) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = planes[k * plane + tile_slot(i)];
+  return r;
+}
+
+__device__ __forceinline__ void st_tile(uint32_t* planes, int plane, int i,
+                                        const Fe& x) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) planes[k * plane + tile_slot(i)] = x.w[k];
+}
+
+// The block's look-back for tile > 0: the product of every earlier tile.
+// Every thread calls it; `part`, `prod` and `first` are shared scratch.
+template <int F>
+__device__ Fe look_back(const uint32_t* state, int64_t tiles, int64_t tile,
+                        Fe* part, Fe* prod, int* first_s) {
+  const uint32_t* const agg = state;
+  const uint32_t* const incl = state + 8 * tiles;
+  const uint32_t* const flags = state + 16 * tiles;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  Fe before = one_mont<F>();
+  for (int64_t end = tile - 1, window = 0;; end -= SCAN_BLOCK, ++window) {
+    const int64_t j = end - t;  // thread 0 takes the nearest earlier tile
+    uint32_t f = FLAG_PREFIX;   // before tile 0: the empty product
+    Fe v = one_mont<F>();
+    if (j >= 0) {
+      do {
+        f = ld_acquire(flags + j);
+      } while (f == 0);
+      v = ld_words((f == FLAG_PREFIX ? incl : agg) + 8 * j);
+    }
+    if (t == 0) *first_s = SCAN_BLOCK;
+    __syncthreads();
+    if (f == FLAG_PREFIX) atomicMin(first_s, t);
+    __syncthreads();
+    // the threads up to the nearest PREFIX take part; the rest give one
+    const int first = *first_s;
+    const int count = first < SCAN_BLOCK ? first + 1 : SCAN_BLOCK;
+    const int warps = (count + 31) >> 5;
+    if (t >= count) v = one_mont<F>();
+    if (warp < warps) {
+      const int lanes = min(count - 32 * warp, 32);
+#pragma unroll 1
+      for (int m = 1; m < lanes; m <<= 1)
+        v = scan_mul<F>(v, shfl_down_fe(v, m));
+      if (lane == 0) part[warp] = v;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      Fe w = lane < warps ? part[lane] : one_mont<F>();
+#pragma unroll 1
+      for (int m = 1; m < warps; m <<= 1)
+        w = scan_mul<F>(w, shfl_down_fe(w, m));
+      if (lane == 0) *prod = window ? scan_mul<F>(before, w) : w;
+    }
+    __syncthreads();
+    before = *prod;
+    if (first < SCAN_BLOCK) return before;
+  }
+}
+
+template <int F, int V>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    scan_kernel(const uint32_t* __restrict__ a, int64_t a_ls, int64_t a_es,
+                uint32_t* __restrict__ out, int64_t o_ls, int64_t o_es,
+                int64_t n, uint32_t* __restrict__ state, int64_t tiles) {
+  constexpr int T = SCAN_BLOCK * V, PLANE = T + T / 32;
+  extern __shared__ uint32_t planes[];  // NW planes of PLANE words
+  __shared__ Fe warp_pre[SCAN_WARPS];
+  __shared__ Fe part[SCAN_WARPS];
+  __shared__ Fe prod, aggregate;
+  __shared__ uint32_t tile_id;
+  __shared__ int first;
+  uint32_t* const incl = state + 8 * tiles;
+  uint32_t* const flags = state + 16 * tiles;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) tile_id = atomicAdd(state + 17 * tiles, 1u);
+  __syncthreads();
+  const int64_t tile = tile_id;
+  const int64_t base = tile * T;
+
+  // 1. the tile, coalesced (past n: one, which leaves every product as is)
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = v * SCAN_BLOCK + t;
+    const int64_t j = base + i;
+    st_tile(planes, PLANE, i,
+            j < n ? load_fe(a, a_ls, j * a_es) : one_mont<F>());
+  }
+  __syncthreads();
+  // 2. the run's inclusive prefixes
+  Fe run = ld_tile(planes, PLANE, t * V);
+#pragma unroll 1
+  for (int v = 1; v < V; ++v) {
+    run = scan_mul<F>(run, ld_tile(planes, PLANE, t * V + v));
+    st_tile(planes, PLANE, t * V + v, run);
+  }
+  // 3. the warp's inclusive scan of the runs' totals, then warp 0's of the
+  //    warps' totals: each warp's exclusive prefix and the aggregate
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+    const Fe y = shfl_up_fe(run, d);
+    if (lane >= d) run = scan_mul<F>(y, run);
+  }
+  Fe lane_pre = shfl_up_fe(run, 1);  // the warp's runs before this one
+  if (lane == 0) lane_pre = one_mont<F>();
+  if (lane == 31) warp_pre[warp] = run;
+  __syncthreads();
+  if (warp == 0) {
+    Fe w = lane < SCAN_WARPS ? warp_pre[lane] : one_mont<F>();
+#pragma unroll 1
+    for (int d = 1; d < SCAN_WARPS; d <<= 1) {
+      const Fe y = shfl_up_fe(w, d);
+      if (lane >= d) w = scan_mul<F>(y, w);
+    }
+    Fe wex = shfl_up_fe(w, 1);
+    const Fe agg = shfl_fe(w, SCAN_WARPS - 1);
+    if (lane == 0) wex = one_mont<F>();
+    if (lane < SCAN_WARPS) warp_pre[lane] = wex;
+    if (lane == 0) {
+      aggregate = agg;
+      st_words(tile ? state + 8 * tile : incl, agg);
+      st_release(flags + tile, tile ? FLAG_AGGREGATE : FLAG_PREFIX);
+    }
+  }
+  __syncthreads();
+  Fe pre = scan_mul<F>(warp_pre[warp], lane_pre);  // within the tile
+  // 4. everything before the tile
+  if (tile > 0) {
+    const Fe before = look_back<F>(state, tiles, tile, part, &prod, &first);
+    if (t == 0) {
+      st_words(incl + 8 * tile, scan_mul<F>(before, aggregate));
+      st_release(flags + tile, FLAG_PREFIX);
+    }
+    pre = scan_mul<F>(before, pre);
+  }
+  // 5. everything before the run, into each of its elements; then out
+#pragma unroll 1
+  for (int v = 0; v < V; ++v)
+    st_tile(planes, PLANE, t * V + v,
+            scan_mul<F>(pre, ld_tile(planes, PLANE, t * V + v)));
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = v * SCAN_BLOCK + t;
+    const int64_t j = base + i;
+    if (j < n) store_fe(out, o_ls, j * o_es, ld_tile(planes, PLANE, i));
+  }
+}
+
+template <int F, int V>
+int launch_scan(const void* a, long long a_ls, long long a_es, void* out,
+                long long o_ls, long long o_es, long long n, uint32_t* state,
+                long long tiles, cudaStream_t s) {
+  constexpr int T = SCAN_BLOCK * V;
+  constexpr int smem = NW * (T + T / 32) * (int)sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_kernel<F, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  scan_kernel<F, V><<<(unsigned)tiles, SCAN_BLOCK, smem, s>>>(
+      (const uint32_t*)a, a_ls, a_es, (uint32_t*)out, o_ls, o_es, n, state,
+      tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -312,59 +720,63 @@ int h2_field_pow(int field, const void* a, long long a_ls, long long a_es,
   return (int)cudaGetLastError();
 }
 
-// a, out: pointers to logical element 0 (the last one for a reverse scan)
-int h2_scan_chunks(int field, const void* a, long long a_ls, long long a_es,
-                   void* out, long long o_ls, long long o_es, void* totals,
-                   long long n, long long L, long long C, void* stream) {
+// p30, pinv30, r3, batches: InvConsts, from cuda_ops.inv_constants
+int h2_field_inv(int field, const void* a, long long a_ls, long long a_es,
+                 void* out, long long n, const int* p30, unsigned int pinv30,
+                 const unsigned int* r3, int batches, void* stream) {
   if (n <= 0) return 0;
-  if (L < 1 || C < 1 || (C - 1) * L >= n || C * L < n)
-    return (int)cudaErrorInvalidValue;
+  if (batches < 0) return (int)cudaErrorInvalidValue;
+  InvConsts c;
+  for (int k = 0; k < S30_LIMBS; ++k) c.p30[k] = p30[k];
+  c.pinv30 = pinv30;
+  for (int k = 0; k < NW; ++k) c.r3[k] = r3[k];
+  c.batches = batches;
   cudaStream_t s = (cudaStream_t)stream;
-  const int g = (int)((C + SCAN_CHUNK_THREADS - 1) / SCAN_CHUNK_THREADS);
-#define H2_LAUNCH(F)                                                        \
-  scan_chunks_kernel<F><<<g, SCAN_CHUNK_THREADS, 0, s>>>(                   \
-      (const uint32_t*)a, a_ls, a_es, (uint32_t*)out, o_ls, o_es,          \
-      (uint32_t*)totals, n, L, C)
-  if (field == FR) H2_LAUNCH(FR);
-  else if (field == FQ) H2_LAUNCH(FQ);
-  else return (int)cudaErrorInvalidValue;
-#undef H2_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-int h2_scan_totals(int field, void* totals, long long C, long long per,
-                   void* stream) {
-  if (C <= 0) return 0;
-  if (per < 1 || per * SCAN_THREADS < C) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  const int g = grid_for(n);
   if (field == FR) {
-    scan_totals_kernel<FR><<<1, SCAN_THREADS, 0, s>>>((uint32_t*)totals, C,
-                                                      per);
+    inv_kernel<FR><<<g, THREADS, 0, s>>>((const uint32_t*)a, a_ls, a_es,
+                                         (uint32_t*)out, n, c);
   } else if (field == FQ) {
-    scan_totals_kernel<FQ><<<1, SCAN_THREADS, 0, s>>>((uint32_t*)totals, C,
-                                                      per);
+    inv_kernel<FQ><<<g, THREADS, 0, s>>>((const uint32_t*)a, a_ls, a_es,
+                                         (uint32_t*)out, n, c);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-int h2_scan_fold(int field, void* out, long long o_ls, long long o_es,
-                 const void* excl, long long n, long long L, long long C,
-                 void* stream) {
-  if (n <= L) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int g = grid_for(n - L);
-  if (field == FR) {
-    scan_fold_kernel<FR><<<g, THREADS, 0, s>>>(
-        (uint32_t*)out, o_ls, o_es, (const uint32_t*)excl, n, L, C);
-  } else if (field == FQ) {
-    scan_fold_kernel<FQ><<<g, THREADS, 0, s>>>(
-        (uint32_t*)out, o_ls, o_es, (const uint32_t*)excl, n, L, C);
-  } else {
+// a, out: pointers to logical element 0 (the last one for a reverse
+// scan); per_thread: V, the run of each thread (1, 2, 4 or 8); state:
+// 17 * tiles + 1 words, tiles = ceil(n / (SCAN_BLOCK * V))
+int h2_scan(int field, int per_thread, const void* a, long long a_ls,
+            long long a_es, void* out, long long o_ls, long long o_es,
+            long long n, void* state, long long tiles, void* stream) {
+  if (n <= 0) return 0;
+  const int64_t tile = (int64_t)SCAN_BLOCK * per_thread;
+  if (per_thread < 1 || tiles != (n + tile - 1) / tile || tiles > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* st = (uint32_t*)state;
+  // the flags and the ticket counter
+  const cudaError_t err = cudaMemsetAsync(st + 16 * tiles, 0,
+                                          (tiles + 1) * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return (int)err;
+#define H2_BY_V(F)                                                      \
+  switch (per_thread) {                                                 \
+    case 1: return launch_scan<F, 1>(a, a_ls, a_es, out, o_ls, o_es, n, \
+                                     st, tiles, s);                     \
+    case 2: return launch_scan<F, 2>(a, a_ls, a_es, out, o_ls, o_es, n, \
+                                     st, tiles, s);                     \
+    case 4: return launch_scan<F, 4>(a, a_ls, a_es, out, o_ls, o_es, n, \
+                                     st, tiles, s);                     \
+    case 8: return launch_scan<F, 8>(a, a_ls, a_es, out, o_ls, o_es, n, \
+                                     st, tiles, s);                     \
+    default: return (int)cudaErrorInvalidValue;                         \
   }
-  return (int)cudaGetLastError();
+  if (field == FR) H2_BY_V(FR);
+  if (field == FQ) H2_BY_V(FQ);
+#undef H2_BY_V
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -12,15 +12,18 @@ place of one Pallas TPU kernel of halo2_tpu/fields/pallas_ops.py:
   mul_tiled  replaces `_mul_tiled_call` — a * t with a table shared by every
              row, indexed j % k
 
-and two that run a sequential chain of products inside the kernel, where
-the JAX package compiles it into one `lax.scan`
-(halo2_tpu/fields/limbs.py):
+and three that run a chain inside the kernel, where the JAX package
+compiles a `lax.scan` (halo2_tpu/fields/limbs.py):
 
-  pow_static  `Field.pow_static` / `Field.inv`: square and multiply over a
-              static exponent, one launch
-  prefix_mul  `Field.prefix_mul`: inclusive prefix products in three
-              launches (chunks, chunk totals in one block's shared memory,
-              fold), either direction, any n
+  pow_static  `Field.pow_static`: square and multiply over a static
+              exponent, one launch (the square roots of a params file's
+              points)
+  inv         `Field.inv`: the inverse by safegcd (Bernstein-Yang
+              divsteps in libsecp256k1's 32-bit form), one launch; it
+              stands for the reference's pow_static(p - 2)
+  prefix_mul  `Field.prefix_mul`: inclusive prefix products in one launch
+              of tiles, one a block, chained by a decoupled look-back;
+              either direction, any n
 
 Their plain versions are the composed loops that stay in fields/limbs.py.
 
@@ -35,7 +38,7 @@ state is shared with the rest of the package as it is.  The design keeps
 one element per thread in eight 32-bit registers, the whole CIOS product
 on carry chains (no intermediate ever leaves the registers), the modulus
 in constant memory, and reads every operand once.  The chains are bound by
-the latency of their dependent products instead.
+the latency of their dependent steps instead.
 
 A wrapper launches its kernel for a CUDA tensor and uses the plain version
 only for a tensor on the CPU; the chain wrappers take CUDA tensors only.
@@ -59,7 +62,7 @@ N_LIMBS = 16
 MASK = (1 << LIMB_BITS) - 1
 
 launch_counts = {"binop": 0, "butterfly": 0, "mul_tiled": 0, "pow": 0,
-                 "scan": 0}
+                 "inv": 0, "scan": 0}
 
 _OPS = {"add": 0, "sub": 1, "mul": 2}
 _FIELD_IDS = {"Fr": 0, "Fq": 1}
@@ -249,13 +252,13 @@ def _lib():
     lib.h2_mul_tiled.argtypes = [ci, vp, vp, vp, ll, ll, vp]
     lib.h2_field_pow.argtypes = [ci, vp, ll, ll, vp, ll,
                                  ctypes.POINTER(ctypes.c_uint32), ci, vp]
-    lib.h2_scan_chunks.argtypes = [ci, vp, ll, ll, vp, ll, ll, vp, ll, ll,
-                                   ll, vp]
-    lib.h2_scan_totals.argtypes = [ci, vp, ll, ll, vp]
-    lib.h2_scan_fold.argtypes = [ci, vp, ll, ll, vp, ll, ll, ll, vp]
+    lib.h2_field_inv.argtypes = [ci, vp, ll, ll, vp, ll,
+                                 ctypes.POINTER(ctypes.c_int32),
+                                 ctypes.c_uint32,
+                                 ctypes.POINTER(ctypes.c_uint32), ci, vp]
+    lib.h2_scan.argtypes = [ci, ci, vp, ll, ll, vp, ll, ll, ll, vp, ll, vp]
     for fn in (lib.h2_field_binop, lib.h2_butterfly, lib.h2_mul_tiled,
-               lib.h2_field_pow, lib.h2_scan_chunks, lib.h2_scan_totals,
-               lib.h2_scan_fold):
+               lib.h2_field_pow, lib.h2_field_inv, lib.h2_scan):
         fn.restype = ci
     return lib
 
@@ -346,19 +349,26 @@ def exponent_words(e: int):
     return [(e >> (32 * k)) & 0xFFFFFFFF for k in range(8)], e.bit_length()
 
 
+def _one_a_thread(name: str, a: torch.Tensor):
+    """What a kernel of one element a thread (pow, inv) takes: a as
+    (tensor, limb stride, element stride), without a copy where `_rows`
+    allows, its element count and the output; CUDA tensors only."""
+    _check_limbs(f"{name} a", a)
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, not "
+                         f"{a.device}")
+    n = a.numel() // N_LIMBS
+    x = _rows(a, tuple(a.shape), n) or (
+        a.reshape(N_LIMBS, n).contiguous(), n, 1)
+    return x, n, torch.empty(a.shape, dtype=torch.int32, device=a.device)
+
+
 def pow_static(field, a: torch.Tensor, e: int) -> torch.Tensor:
     """a**e (Montgomery form in and out) for a CUDA tensor (16, *batch), in
     one launch; 0 -> 0 for e > 0, and e = 0 gives one everywhere.  The
     plain version is `Field.plain_pow_static`."""
-    _check_limbs("pow_static a", a)
-    if a.device.type != "cuda":
-        raise ValueError(f"pow_static: the kernel takes CUDA tensors, not "
-                         f"{a.device}")
-    n = a.numel() // N_LIMBS
-    shape = tuple(a.shape)
-    x = _rows(a, shape, n) or (a.reshape(N_LIMBS, n).contiguous(), n, 1)
+    x, n, out = _one_a_thread("pow_static", a)
     words, nbits = exponent_words(e)
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
     if n:
         build.launch(a.device, _lib().h2_field_pow, _FIELD_IDS[field.name],
                      x[0].data_ptr(), x[1], x[2], out.data_ptr(), n,
@@ -367,23 +377,68 @@ def pow_static(field, a: torch.Tensor, e: int) -> torch.Tensor:
     return out
 
 
-# the scan's chunking: at most SCAN_CHUNKS chunks, so that pass 2 (one
-# block of SCAN_THREADS threads, csrc/field_kernels.cu) folds at most
-# SCAN_CHUNKS / SCAN_THREADS totals a thread; 4096 chunk threads cover the
-# 132 SMs of an H100 with one 32-thread block each
-SCAN_THREADS = 512
-SCAN_CHUNKS = 4096
+# safegcd: signed 30-bit limbs, 30 divsteps a batch.  Bernstein and Yang,
+# "Fast constant-time gcd computation and modular inversion" (2019),
+# Theorem 11.2: from delta = 1, floor((49d + 57) / 17) divsteps reach
+# g = 0 when f^2 + 4g^2 <= 5 * 2^(2d) and d >= 46.  f = p and 0 <= g < p
+# are below 2^254 for both BN254 fields, so d = 254 and 735 divsteps
+# suffice: 25 batches of 30 (750).
+INV_LIMB_BITS = 30
+INV_LIMBS = 9
+INV_DIVSTEPS = 30
+INV_BATCHES = 25
+
+
+@functools.lru_cache(maxsize=None)
+def inv_constants(p: int, R: int) -> dict:
+    """What the inverse kernel takes for the modulus p (R = 2^256 mod p):
+    p in nine 30-bit limbs, p^-1 mod 2^30, R^3 mod p as eight 32-bit
+    words (the divsteps invert x = a R into a^-1 R^-1; one Montgomery
+    product by R^3 gives a^-1 R), and the batch count."""
+    mask = (1 << INV_LIMB_BITS) - 1
+    r3 = pow(R, 3, p)
+    return {"p30": [(p >> (INV_LIMB_BITS * i)) & mask
+                    for i in range(INV_LIMBS)],
+            "pinv30": pow(p, -1, 1 << INV_LIMB_BITS),
+            "r3": [(r3 >> (32 * k)) & 0xFFFFFFFF for k in range(8)],
+            "batches": INV_BATCHES}
+
+
+def inv(field, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 (Montgomery form in and out, 0 -> 0) for a CUDA tensor
+    (16, *batch), in one launch.  The plain version is
+    `Field.plain_pow_static(a, p - 2)`: the same function, and both give
+    the canonical value."""
+    x, n, out = _one_a_thread("inv", a)
+    c = inv_constants(field.p, field.R)
+    if n:
+        build.launch(a.device, _lib().h2_field_inv, _FIELD_IDS[field.name],
+                     x[0].data_ptr(), x[1], x[2], out.data_ptr(), n,
+                     (ctypes.c_int32 * INV_LIMBS)(*c["p30"]), c["pinv30"],
+                     (ctypes.c_uint32 * 8)(*c["r3"]), c["batches"])
+        launch_counts["inv"] += 1
+    return out
+
+
+# the scan's tiles: SCAN_BLOCK threads a block (csrc/field_kernels.cu), a
+# run of V consecutive elements a thread; V is the largest of
+# SCAN_PER_THREAD that still leaves SCAN_MIN_TILES tiles (about one for
+# each of an H100's 132 SMs), else 1: the fastest V on the card at 2^16,
+# 2^18, 5 * 2^16 and 2^22 (examples/torch_chain_probe.py, PERF.md)
+SCAN_BLOCK = 256
+SCAN_PER_THREAD = (1, 2, 4, 8)
+SCAN_MIN_TILES = 128
 
 
 def scan_plan(n: int):
-    """(L, C, per) for a scan of n >= 1 elements: C chunks of L (the last
-    one holds the rest, at least one element), `per` chunk totals for each
-    thread of pass 2."""
+    """(V, tiles) for a scan of n >= 1 elements: tiles of SCAN_BLOCK * V
+    consecutive elements (the last one holds the rest), one block each,
+    in one launch."""
     if n < 1:
         raise ValueError("scan_plan: n must be at least 1")
-    L = -(-n // SCAN_CHUNKS)
-    C = -(-n // L)
-    return L, C, -(-C // SCAN_THREADS)
+    V = max(v for v in SCAN_PER_THREAD
+            if v == 1 or n >= SCAN_MIN_TILES * SCAN_BLOCK * v)
+    return V, -(-n // (SCAN_BLOCK * V))
 
 
 def scan_origin(n: int, es: int, reverse: bool):
@@ -395,9 +450,8 @@ def scan_origin(n: int, es: int, reverse: bool):
 
 def prefix_mul(field, a: torch.Tensor, reverse: bool = False):
     """Inclusive prefix products of a CUDA (16, n) array, from the end if
-    `reverse`, in three launches (chunks, chunk totals, fold); a strided
-    view goes in as it is.  The plain version is
-    `Field.plain_prefix_mul`."""
+    `reverse`, in one launch (`scan_plan`'s tiles); a strided view goes in
+    as it is.  The plain version is `Field.plain_prefix_mul`."""
     _check_limbs("prefix_mul a", a)
     if a.ndim != 2:
         raise ValueError("prefix_mul expects (16, N)")
@@ -408,20 +462,17 @@ def prefix_mul(field, a: torch.Tensor, reverse: bool = False):
     out = torch.empty((N_LIMBS, n), dtype=torch.int32, device=a.device)
     if n == 0:
         return out
-    L, C, per = scan_plan(n)
-    lib, fid, dev = _lib(), _FIELD_IDS[field.name], a.device
+    V, tiles = scan_plan(n)
+    dev = a.device
     a0, a_es = scan_origin(n, a.stride(1), reverse)
     o0, o_es = scan_origin(n, 1, reverse)
-    a_ptr = a.data_ptr() + 4 * a0
-    o_ptr = out.data_ptr() + 4 * o0
-    totals = torch.empty((N_LIMBS, C), dtype=torch.int32, device=dev)
-    build.launch(dev, lib.h2_scan_chunks, fid, a_ptr, a.stride(0), a_es,
-                 o_ptr, n, o_es, totals.data_ptr(), n, L, C)
-    launch_counts["scan"] += 1
-    build.launch(dev, lib.h2_scan_totals, fid, totals.data_ptr(), C, per)
-    launch_counts["scan"] += 1
-    build.launch(dev, lib.h2_scan_fold, fid, o_ptr, n, o_es,
-                 totals.data_ptr(), n, L, C)
+    # each tile's aggregate and inclusive prefix (8 words each) and flag,
+    # and the ticket counter
+    state = torch.empty(17 * tiles + 1, dtype=torch.int32, device=dev)
+    build.launch(dev, _lib().h2_scan, _FIELD_IDS[field.name], V,
+                 a.data_ptr() + 4 * a0, a.stride(0), a_es,
+                 out.data_ptr() + 4 * o0, n, o_es, n, state.data_ptr(),
+                 tiles)
     launch_counts["scan"] += 1
     return out
 

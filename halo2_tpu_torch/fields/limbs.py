@@ -17,9 +17,9 @@ Layout (decided once, here):
 
 `add`, `sub` and `mul` go to `fields/cuda_ops.py`, which launches a kernel
 for a CUDA tensor and runs its plain version for a CPU tensor; so do
-`pow_static` (hence `inv`) and `prefix_mul`, each one kernel chain on the
-card, whose plain versions (`plain_pow_static`, `plain_prefix_mul`) are
-the composed loops here.  Everything else is composed of those.  The
+`pow_static`, `inv` and `prefix_mul`, each one kernel launch on the card,
+whose plain versions (`plain_pow_static`, `plain_pow_static(a, p - 2)`,
+`plain_prefix_mul`) are the composed loops here.  Everything else is composed of those.  The
 host conversions `encode_np` and `decode` go through the host codec
 (native/); `plain_encode_np` and `plain_decode` are their plain versions.
 """
@@ -268,14 +268,17 @@ class Field:
         return res
 
     def inv(self, a):
-        """Fermat inverse (0 -> 0)."""
-        return self.pow_static(a, self.p - 2)
+        """The inverse (0 -> 0): one safegcd kernel launch for a CUDA tensor
+        (fields/cuda_ops.py), the plain Fermat power a^(p-2) on the CPU;
+        both give the canonical value."""
+        if a.device.type == "cuda":
+            return cuda_ops.inv(self, a)
+        return self.plain_pow_static(a, self.p - 2)
 
     def prefix_mul(self, a, reverse: bool = False, block: int = 1024):
         """Inclusive prefix products of a (16, N) vector, from the end if
-        `reverse`: three kernel launches for a CUDA tensor
-        (fields/cuda_ops.py, which chunks as suits the card), the plain
-        version on the CPU."""
+        `reverse`: one kernel launch for a CUDA tensor (fields/cuda_ops.py,
+        which tiles as suits the card), the plain version on the CPU."""
         if a.ndim != 2:
             raise ValueError("prefix_mul expects (16, N)")
         if a.device.type == "cuda":
