@@ -16,8 +16,10 @@ halo2_tpu_torch/native, then:
            `device_ms` from the same 20 launches replayed from a CUDA
            graph.  The chain entry
            points (pow, inv, the prefix-product scan, the MSM's bucket
-           scan, the Horner combine, the scalar ladder) are held to their
-           composed plain versions at the proofs' shapes and at edge cases,
+           scan, the Horner combine, the scalar ladder, the fixed-base
+           comb) are held to their composed plain versions at the proofs'
+           shapes (pow and the comb also at the large path's 2^22) and at
+           edge cases,
            and each public function is shown to make its one launch; K2
            and K3 also at the chunk shapes
            the streamed extended inverse transform of the large path feeds
@@ -35,8 +37,9 @@ halo2_tpu_torch/native, then:
            launch count set to 0 just before and read just after (all
            counters printed, with the K1 and K4 family totals; the MSM's
            bucket scan launched once a window group, the Horner kernel once
-           a call, the 1:1 scan step `add_mixed_packed` and `pow` never:
-           every inversion is `inv`'s); a proof
+           a call, the fixed-base comb twice (setup's two bases), the 1:1
+           scan step `add_mixed_packed`, the scalar ladder and `pow` never:
+           every inversion is `inv`'s), setup's seconds by phase; a proof
            with one byte flipped and a wrong instance must be rejected;
   args     the same for AllArgsCircuit over every usable row of 2^k (gate
            with a compressed selector, permutation, a shared-table logup
@@ -123,7 +126,8 @@ from halo2_tpu_torch.circuits import (AllArgsCircuit, BlockMulChainCircuit,
 from halo2_tpu_torch.curves import cuda_point, g1
 from halo2_tpu_torch.fields import cuda_ops
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS as P, fq, fr
-from halo2_tpu_torch.fields.limbs import N_LIMBS, limbs_to_ints
+from halo2_tpu_torch.fields.limbs import (N_LIMBS, ints_to_limbs_np,
+                                          limbs_to_ints)
 from halo2_tpu_torch.msm import msm
 from halo2_tpu_torch.msm import sorted as msm_sorted
 from halo2_tpu_torch.msm.distributed import msm_many_sharded
@@ -140,7 +144,7 @@ from halo2_tpu_torch.plonk.prover import (LARGE_N, create_proof,
                                           create_proof_multi, create_witness,
                                           synthesize_witness)
 from halo2_tpu_torch.plonk.verifier import verify_proof, verify_proof_multi
-from halo2_tpu_torch.poly.commitment import Params
+from halo2_tpu_torch.poly.commitment import Params, setup_scalars
 from halo2_tpu_torch.poly.domain import STREAM_NTT_MIN
 from halo2_tpu_torch.utils import build, profiling
 from halo2_tpu_torch.utils.profiling import bound_ms as _bound
@@ -159,19 +163,25 @@ DFT_PROBE = os.path.join(ROOT, "examples", "torch_mxu_dft_probe.py")
 # 32-bit integer multiply-add-class instructions of one field operation, as
 # the kernels issue them (csrc/field.cuh): a CIOS Montgomery product runs,
 # for each of its 8 words, two rows of 8 low and 8 high multiply-adds
-# (mad_row) and one product for m; an add or sub is two 8-word carry chains
-# (integer additions, counted at the same rate).
+# (mad_row) and one product for m; a Montgomery square (mont_sqr) the 36
+# distinct word products of a^2, low and high halves, and the same 8 rows of
+# reduction; an add or sub is two 8-word carry chains (integer additions,
+# counted at the same rate).
 MADS_MUL = 8 * (2 * 16 + 1)
+MADS_SQR = 2 * 36 + 8 * (16 + 1)
 OPS_ADD = 16
-# field products / additions of the point formulas (curves/formulas.py)
+# field products / additions of the point formulas (curves/formulas.py),
+# and how many of the products are squares (y^2, z^2 of the doubling)
 POINT_OPS = {"add": (12, 29), "add_mixed": (11, 25), "double": (8, 17)}
+POINT_SQRS = {"add": 0, "add_mixed": 0, "double": 2}
 WORD = 4
 
 
-def _bounds(n_bytes, muls, adds=0) -> dict:
-    """The bound of `muls` field products and `adds` field additions on
-    n_bytes, at the card's integer rate."""
-    bound, by = _bound(n_bytes, muls * MADS_MUL + adds * OPS_ADD)
+def _bounds(n_bytes, muls, adds=0, sqrs=0) -> dict:
+    """The bound of `muls` field products, `sqrs` of them squares, and
+    `adds` field additions on n_bytes, at the card's integer rate."""
+    bound, by = _bound(n_bytes, (muls - sqrs) * MADS_MUL + sqrs * MADS_SQR
+                       + adds * OPS_ADD)
     return {"bound_ms": bound, "bound_by": by}
 
 
@@ -350,7 +360,7 @@ def _shapes(k: int, path: str, circuit, proofs: int = 1,
     for lk_sets in sets:
         scan.add((len(lk_sets[0]) + 1) * n)
         scan.update(len(s) * n for s in lk_sets[1:])
-    return {"path": path, "n": n, "ext_n": ext_n, "ext_k": ext_k,
+    return {"path": path, "k": k, "n": n, "ext_n": ext_n, "ext_k": ext_k,
             "scan": windows * block, "windows": windows, "c": c,
             "block": block, "nb": (1 << (c - 1)) + 1,
             "horner_lanes": lanes, "batches": batches,
@@ -513,31 +523,71 @@ def _k3_mul_tiled(shs, gen, device, large_ext_k) -> dict:
                   variants[0]["shape"])
 
 
-def _pow_products(e: int) -> int:
-    """Products of square and multiply for the exponent e."""
+def _pow_products(e: int) -> tuple:
+    """Squarings and multiplies of the pow kernel's schedule for the
+    exponent e (the odd powers and the sliding windows,
+    cuda_ops.pow_schedule)."""
+    plan = cuda_ops.pow_schedule(e)
+    return plan["squarings"], plan["multiplies"]
+
+
+def _square_multiply_products(e: int) -> int:
+    """Products of square and multiply for e (the pow kernel before its
+    schedule, and the plain version)."""
     return 0 if e == 0 else e.bit_length() - 1 + bin(e).count("1") - 1
 
 
-def _field_pow(sh, gen, device) -> dict:
+# columns a plain version takes at once at the large sizes (its int64
+# partial products take some 4-7 GB a chunk)
+PLAIN_CHUNK = 1 << 18
+
+
+def _plain_by_chunks(fn, x, chunk=PLAIN_CHUNK):
+    """fn over column chunks of x (16, n), joined: the plain version of an
+    elementwise chain at a width it could not hold at once; fn returns a
+    tensor or a tuple of them."""
+    outs = [fn(x[:, j:j + chunk]) for j in range(0, x.shape[1], chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(c, dim=1) for c in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+def _field_pow(sh, gen, device, ptxas) -> dict:
     """pow_static: one launch, against the composed plain loop; timed at
     the square roots of a params file's points (Fq, (q + 1) / 4, 2^k of
-    them: `points_from_bytes` at load)."""
+    them: `points_from_bytes` at load), at the k of the proof paths and at
+    the large path's k = 22."""
     Fq = fq(device)
-    n, e_sqrt = sh["n"], (Fq.p + 1) // 4
-    a = _rand_field(Fq, (n,), gen)
-    want, plain_ms = profiling.timed(lambda: Fq.plain_pow_static(a, e_sqrt))
-    _expect_launches("pow_static", lambda: Fq.pow_static(a, e_sqrt),
-                     {"pow": 1})
-    variant = {"variant": f"sqrt/Fq n={n}", "n": n,
-               "max_abs_err": _max_err(Fq.pow_static(a, e_sqrt), want),
-               **_times(lambda: Fq.pow_static(a, e_sqrt), plain_ms),
-               **_bounds(2 * N_LIMBS * WORD * n, _pow_products(e_sqrt) * n)}
-    # edge cases: 0, 1, p - 1 among the inputs, exponents 0, 1, 2, 3 and
-    # (p + 1) / 4, one element, a batch of two dims
+    e_sqrt = (Fq.p + 1) // 4
+    sqr, mul = _pow_products(e_sqrt)
+    variants = []
+    for n in (sh["n"], 1 << LARGE_K):
+        a = _rand_field(Fq, (n,), gen)
+        want, plain_ms = profiling.timed(lambda: _plain_by_chunks(
+            lambda c: Fq.plain_pow_static(c, e_sqrt), a, 4 * PLAIN_CHUNK))
+        _expect_launches("pow_static", lambda: Fq.pow_static(a, e_sqrt),
+                         {"pow": 1})
+        variants.append({
+            "variant": f"sqrt/Fq n={n}", "n": n,
+            "max_abs_err": _max_err(Fq.pow_static(a, e_sqrt), want),
+            **_times(lambda: Fq.pow_static(a, e_sqrt), plain_ms,
+                     reps=20 if n <= sh["n"] else 5),
+            **_bounds(2 * N_LIMBS * WORD * n, (sqr + mul) * n,
+                      sqrs=sqr * n),
+            "window": cuda_ops.pow_schedule(e_sqrt)["window"],
+            "kernel_products": {
+                "schedule": sqr + mul, "squarings": sqr, "multiplies": mul,
+                "square_and_multiply":
+                    _square_multiply_products(e_sqrt)}})
+        del a, want
+    # edge cases: 0, 1, p - 1 among the inputs; exponents 0, 1, 2, 3, 5,
+    # (p + 1) / 4, p - 2, 2^255 + 1 (the longest run of squarings) and
+    # 2^256 - 1 (every window full), one element, a batch of two dims
     worst = 0
     for F in (fr(device), fq(device)):
         a = _rand_field(F, (1000,), gen)
-        for e in (0, 1, 2, 3, (F.p + 1) // 4):
+        for e in (0, 1, 2, 3, 5, (F.p + 1) // 4, F.p - 2, (1 << 255) + 1,
+                  (1 << 256) - 1):
             worst = max(worst, _max_err(F.pow_static(a, e),
                                         F.plain_pow_static(a, e)))
             worst = max(worst, _max_err(F.pow_static(a[:, 5], e),
@@ -546,10 +596,13 @@ def _field_pow(sh, gen, device) -> dict:
             b = a[:, :24].reshape(N_LIMBS, 4, 6)
             worst = max(worst, _max_err(F.pow_static(b, e),
                                         F.plain_pow_static(b, e)))
-    variant["max_abs_err"] = max(variant["max_abs_err"], worst)
-    return _entry("field_pow", "halo2_tpu_torch/csrc/field_kernels.cu",
-                  "halo2_tpu/fields/limbs.py:533 pow_static (lax.scan)",
-                  [variant], f"sqrt/Fq (16, {n})")
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    entry = _entry("field_pow", "halo2_tpu_torch/csrc/field_kernels.cu",
+                   "halo2_tpu/fields/limbs.py:533 pow_static (lax.scan)",
+                   variants, f"sqrt/Fq (16, {sh['n']})")
+    entry["blocks_per_sm"] = cuda_ops.occupancy()
+    entry.update(_ptxas_of(ptxas, "pow_kernelILi1E"))
+    return entry
 
 
 # multiply-adds of one inversion by the kernel: 25 batches of the two
@@ -711,7 +764,7 @@ def _k4_point_op(sh, gen, device, pts) -> dict:
             **_times(lambda: cuda_point.point_op(op, coords), _time_cuda(
                 lambda: cuda_point.plain_point_op(op, coords), 2)),
             **_bounds((len(coords) + 3) * N_LIMBS * WORD * n, muls * n,
-                      adds * n)})
+                      adds * n, POINT_SQRS[op] * n)})
     e = _entry("point_op", "halo2_tpu_torch/csrc/point_kernels.cu",
                "halo2_tpu/curves/pallas_point.py:38", variants,
                f"add, 6 x (16, {n})")
@@ -860,7 +913,8 @@ def _horner_bounds(lanes, W, c, tail) -> dict:
     chain = (W - 1) * c + tail
     return _bounds(3 * N_LIMBS * WORD * lanes * (W + 1),
                    lanes * (chain * dm_ + (W - 1) * am),
-                   lanes * (chain * da + (W - 1) * aa))
+                   lanes * (chain * da + (W - 1) * aa),
+                   lanes * chain * POINT_SQRS["double"])
 
 
 def _point_horner(shs, gen, device, pts, ptxas) -> dict:
@@ -947,7 +1001,7 @@ def _point_ladder(sh, gen, device, pts) -> dict:
          "max_abs_err": _max_err(g1.scalar_mul(aff_p, s), want),
          **_times(lambda: g1.scalar_mul(aff_p, s), plain_ms, reps=5),
          **_bounds(6 * N_LIMBS * WORD * n, 255 * n * dm_ + bits * am,
-                   255 * n * da + bits * aa)}
+                   255 * n * da + bits * aa, 255 * n * POINT_SQRS["double"])}
     # edge cases: scalars 0, 1, all 256 bits set, one point, a ragged batch
     m = 1000
     s = _rand_scalars(m, gen, device)
@@ -967,6 +1021,82 @@ def _point_ladder(sh, gen, device, pts) -> dict:
     return _entry("point_ladder", "halo2_tpu_torch/csrc/point_kernels.cu",
                   "halo2_tpu/curves/g1.py:141 scalar_mul (lax.scan)", [v],
                   f"(x, y) 2 x (16, {n}), scalars (16, {n})")
+
+
+def _nonzero_bytes(s) -> int:
+    """The bytes of standard-form scalar limbs (16, n) that are not 0: the
+    mixed adds the comb of 8-bit windows needs."""
+    return int(((s & 0xFF) != 0).sum().item()
+               + ((s >> 8) != 0).sum().item())
+
+
+def _fixed_base(sh, gen, device, ptxas) -> dict:
+    """fixed_base_mul: one launch, against the composed plain comb, at the
+    scalars of unsafe_setup at the proof paths' k and at the large path's
+    k = 22; its affine points equal the ladder's on the same scalars."""
+    rows = g1.fixed_base_table(device).rows
+    # the plain version's table: the same points as affine limbs
+    xy = g1.fixed_base_table("cpu").xy.to(device)
+    muls, adds = POINT_OPS["add_mixed"]
+    gen_aff = g1.generator(device)
+    variants = []
+    for k in (sh["k"], LARGE_K):
+        n = 1 << k
+        s, _ = setup_scalars(k, int(torch.randint(
+            1, 1 << 62, (1,), generator=gen, device=device).item()), device)
+        want, plain_ms = profiling.timed(lambda: _plain_by_chunks(
+            lambda c: g1.plain_fixed_base_mul(xy, c), s))
+        _expect_launches("fixed_base_mul", lambda: g1.fixed_base_mul(s),
+                         {"fixed_base": 1})
+        got = g1.fixed_base_mul(s)
+        base = tuple(c[:, None].expand(N_LIMBS, n) for c in gen_aff)
+        ladder = g1.scalar_mul(base, s)
+        if not torch.equal(torch.stack(g1.to_affine(got)),
+                           torch.stack(g1.to_affine(ladder))):
+            raise AssertionError(f"fixed_base_mul and the ladder differ in "
+                                 f"affine at n = {n}")
+        del ladder
+        adds_needed = _nonzero_bytes(s)
+        variants.append({
+            "variant": f"setup scalars n={n}", "n": n,
+            "max_abs_err": _max_err(got, want), "affine_equal_ladder": True,
+            **_times(lambda: g1.fixed_base_mul(s), plain_ms,
+                     reps=20 if n <= sh["n"] else 5),
+            **_bounds(4 * N_LIMBS * WORD * n + rows.numel() * WORD,
+                      muls * adds_needed, adds * adds_needed),
+            "mixed_adds": adds_needed,
+            "kernel_ops": {"mixed_adds": g1.FB_WINDOWS * n,
+                           **_bounds(4 * N_LIMBS * WORD * n
+                                     + rows.numel() * WORD,
+                                     muls * g1.FB_WINDOWS * n,
+                                     adds * g1.FB_WINDOWS * n)}})
+        del s, want, got
+    # edge scalars: 0, 1, 255, 256, r - 1, every byte 0xFF, only the top
+    # window set, random; a ragged batch, one scalar, a batch of two dims,
+    # a strided view
+    R_ = fr(device).p
+    edge = [0, 1, 255, 256, R_ - 1, (1 << 256) - 1, 0xFF << 248,
+            1 << 248]
+    s = _rand_scalars(1000, gen, device)
+    s[:, :len(edge)] = torch.from_numpy(
+        ints_to_limbs_np(edge).astype(np.int32)).to(device)
+    worst = 0
+    for x in (s, s[:, 5:6], s[:, 3:4], s[:, :24].reshape(N_LIMBS, 4, 6),
+              s[:, ::3]):
+        worst = max(worst, _max_err(
+            g1.fixed_base_mul(x), g1.plain_fixed_base_mul(xy,
+                                                          x.contiguous())))
+    if not bool(g1.is_identity(g1.fixed_base_mul(s[:, :1]))[0]):
+        raise AssertionError("fixed_base_mul(0) is not the identity")
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    variants[0]["edge_scalars"] = len(edge)
+    e = _entry("fixed_base", "halo2_tpu_torch/csrc/point_kernels.cu",
+               "halo2_tpu/curves/g1.py:141 scalar_mul (lax.scan), as "
+               "Params.unsafe_setup calls it (the generator)", variants,
+               f"scalars (16, {sh['n']}), table (8192, 16)")
+    e["blocks_per_sm"] = cuda_point.occupancy()["fixed_base"]
+    e.update(_ptxas_of(ptxas, "fixed_base_kernel"))
+    return e
 
 
 def phase_kernels(k: int, device, ptxas: dict) -> list:
@@ -989,14 +1119,15 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
     entries = [_k1_binop(shs, gen, device),
                _k2_butterfly(shs, gen, device, large_ext_k),
                _k3_mul_tiled(shs, gen, device, large_ext_k),
-               _field_pow(sh, gen, device),
+               _field_pow(sh, gen, device, ptxas),
                _field_inv(sh, gen, device),
                _field_scan(shs, gen, device),
                _k4_point_op(sh, gen, device, pts),
                _k5_packed(sh, gen, device, pts),
                _msm_scan(sh, gen, device, pts, ptxas),
                _point_horner(shs, gen, device, pts, ptxas),
-               _point_ladder(sh, gen, device, pts)]
+               _point_ladder(sh, gen, device, pts),
+               _fixed_base(sh, gen, device, ptxas)]
     for e in entries:
         if e["max_abs_err"] != 0:
             raise AssertionError(
@@ -1102,12 +1233,16 @@ def _reset_counts():
 
 # the kernel families of the TPU kernels K1 and K4, by launch counter
 FAMILIES = {"K1": ("binop", "pow", "inv", "scan"),
-            "K4": ("point_op", "horner", "ladder")}
+            "K4": ("point_op", "horner", "ladder", "fixed_base")}
 FAMILY_LIMITS_K16 = {"K1": 6000, "K4": 1500}
 # kernels no proof path launches: the 1:1 port of the Pallas scan step
-# (the bucket scan took its place) and pow (the square roots of a params
-# file's points, on the load path; every inversion goes to inv)
-OFF_PROVE_PATH = ("add_mixed_packed", "pow")
+# (the bucket scan took its place), pow (the square roots of a params
+# file's points, on the load path; every inversion goes to inv) and the
+# scalar ladder (setup multiplies the generator by the fixed-base comb)
+OFF_PROVE_PATH = ("add_mixed_packed", "pow", "ladder")
+# launches of the fixed-base comb a path makes: unsafe_setup's g and
+# g_lagrange
+SETUP_FIXED_BASE = 2
 
 
 def _rejects(pv, vk, instances_list, proof, use_gwc=True) -> bool:
@@ -1137,7 +1272,9 @@ def _drive(name, k, seed, device, circuits, instances_list,
     profiling.reset()
     _reset_counts()                          # the path starts here
     phases = profiling.PhaseTimes(device, peaks=peaks)
-    params = Params.unsafe_setup(k, seed=seed, device=device)
+    setup_phases = profiling.PhaseTimes(device)
+    params = Params.unsafe_setup(k, seed=seed, device=device,
+                                 phases=setup_phases)
     phases("unsafe_setup")
     vk, pk = keygen(params, circuits[0], floor_planner=floor_planner,
                     device=device)
@@ -1194,6 +1331,10 @@ def _drive(name, k, seed, device, circuits, instances_list,
         if launches[kernel]:
             raise AssertionError(f"{name}: kernel {kernel} was launched "
                                  f"{launches[kernel]} times on the path")
+    if launches["fixed_base"] != SETUP_FIXED_BASE:
+        raise AssertionError(f"{name}: fixed_base made "
+                             f"{launches['fixed_base']} launches, expected "
+                             f"{SETUP_FIXED_BASE} (setup's two bases)")
     for kernel, per in (("msm_scan", "msm_window_groups"),
                         ("horner", "horner_calls")):
         if launches[kernel] != counters[per]:
@@ -1224,6 +1365,8 @@ def _drive(name, k, seed, device, circuits, instances_list,
         "tampered_rejected": tampered_rejected,
         "wrong_instance_rejected": wrong_rejected,
         "seconds": {n_: round(s, 3) for n_, s in phases.seconds.items()},
+        "unsafe_setup_seconds": {n_: round(s, 3) for n_, s
+                                 in setup_phases.seconds.items()},
         "create_proof_seconds": {n_: round(s, 3) for n_, s
                                  in prover_phases.seconds.items()},
         "launches": launches, "launches_by_family": families,
@@ -1584,8 +1727,8 @@ def _card_mesh() -> Mesh:
 # the wrappers whose shapes the mesh changes (shard shapes, the local
 # transforms of the four-step, the tree over the shards' window totals):
 # each call on the mesh path records its shapes; the grand products' inv
-# and scan and the setup's ladder run whole on the first device, at the
-# args path's shapes
+# and scan and the setup's scalars and fixed-base comb run whole on the
+# first device, at the args path's shapes
 MESH_RECORDED = (
     (cuda_ops, "binop", lambda op, field, a, b:
      (op, field.name, tuple(a.shape), tuple(b.shape))),
@@ -1778,9 +1921,11 @@ def phase_mesh(k: int, seed: int, device) -> dict:
     _reset_counts()                          # the mesh path starts here
     phases = profiling.PhaseTimes(device)
     sharded_phases = profiling.PhaseTimes(device)
+    setup_phases = profiling.PhaseTimes(device)
 
     def run():
-        params = Params.unsafe_setup(k, seed=seed, device=device)
+        params = Params.unsafe_setup(k, seed=seed, device=device,
+                                     phases=setup_phases)
         params.use_mesh(mesh)
         phases("unsafe_setup")
         vk, pk = keygen(params, circuit, floor_planner=FlatFloorPlanner,
@@ -1842,6 +1987,14 @@ def phase_mesh(k: int, seed: int, device) -> dict:
         if count <= 0 and kernel not in OFF_PROVE_PATH:
             raise AssertionError(f"mesh: kernel {kernel} was never launched "
                                  f"on the path")
+    for kernel in OFF_PROVE_PATH:
+        if launches[kernel]:
+            raise AssertionError(f"mesh: kernel {kernel} was launched "
+                                 f"{launches[kernel]} times on the path")
+    if launches["fixed_base"] != SETUP_FIXED_BASE:
+        raise AssertionError(f"mesh: fixed_base made "
+                             f"{launches['fixed_base']} launches, expected "
+                             f"{SETUP_FIXED_BASE}")
     for kernel, per in (("msm_scan", "msm_window_groups"),
                         ("horner", "horner_calls")):
         if launches[kernel] != counters[per]:
@@ -1863,6 +2016,8 @@ def phase_mesh(k: int, seed: int, device) -> dict:
         "batch_verified": batch_ok, "tampered_rejected": True,
         "primitives": primitives,
         "seconds": {n_: round(s, 3) for n_, s in phases.seconds.items()},
+        "unsafe_setup_seconds": {n_: round(s, 3) for n_, s
+                                 in setup_phases.seconds.items()},
         "create_proof_seconds": {
             "sharded": {n_: round(s, 3)
                         for n_, s in sharded_phases.seconds.items()},
@@ -1888,7 +2043,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "field_inv": "inv", "field_scan": "scan", "point_op": "point_op",
               "add_mixed_packed": "add_mixed_packed",
               "msm_scan": "msm_scan", "point_horner": "horner",
-              "point_ladder": "ladder",
+              "point_ladder": "ladder", "fixed_base": "fixed_base",
               "dft_epilogue": "dft_epilogue"}
 ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,large,mesh,dft"
 

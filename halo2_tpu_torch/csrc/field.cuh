@@ -225,9 +225,154 @@ __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
   return cond_sub_p<F>(r);
 }
 
+// t[0..15] = a^2, the full 512 bits: the 28 products a_i a_j (i < j) once
+// each, in one row per i (low halves, then high halves one word up),
+// doubled by a one-bit shift, then the 8 squares a_i^2 on the diagonal.
+// 36 word products (72 multiply-adds) against a product's 64.
+__device__ __forceinline__ void sqr_wide(uint32_t (&t)[2 * NW], const Fe& a) {
+#pragma unroll
+  for (int k = 0; k < 2 * NW; ++k) t[k] = 0;
+  asm("mad.lo.cc.u32   %1, %16, %17, %1;\n\t"
+      "madc.lo.cc.u32  %2, %16, %18, %2;\n\t"
+      "madc.lo.cc.u32  %3, %16, %19, %3;\n\t"
+      "madc.lo.cc.u32  %4, %16, %20, %4;\n\t"
+      "madc.lo.cc.u32  %5, %16, %21, %5;\n\t"
+      "madc.lo.cc.u32  %6, %16, %22, %6;\n\t"
+      "madc.lo.cc.u32  %7, %16, %23, %7;\n\t"
+      "addc.u32        %8, %8, 0;\n\t"
+      "mad.hi.cc.u32   %2, %16, %17, %2;\n\t"
+      "madc.hi.cc.u32  %3, %16, %18, %3;\n\t"
+      "madc.hi.cc.u32  %4, %16, %19, %4;\n\t"
+      "madc.hi.cc.u32  %5, %16, %20, %5;\n\t"
+      "madc.hi.cc.u32  %6, %16, %21, %6;\n\t"
+      "madc.hi.cc.u32  %7, %16, %22, %7;\n\t"
+      "madc.hi.cc.u32  %8, %16, %23, %8;\n\t"
+      "addc.u32        %9, %9, 0;\n\t"
+      "mad.lo.cc.u32   %3, %17, %18, %3;\n\t"
+      "madc.lo.cc.u32  %4, %17, %19, %4;\n\t"
+      "madc.lo.cc.u32  %5, %17, %20, %5;\n\t"
+      "madc.lo.cc.u32  %6, %17, %21, %6;\n\t"
+      "madc.lo.cc.u32  %7, %17, %22, %7;\n\t"
+      "madc.lo.cc.u32  %8, %17, %23, %8;\n\t"
+      "addc.u32        %9, %9, 0;\n\t"
+      "mad.hi.cc.u32   %4, %17, %18, %4;\n\t"
+      "madc.hi.cc.u32  %5, %17, %19, %5;\n\t"
+      "madc.hi.cc.u32  %6, %17, %20, %6;\n\t"
+      "madc.hi.cc.u32  %7, %17, %21, %7;\n\t"
+      "madc.hi.cc.u32  %8, %17, %22, %8;\n\t"
+      "madc.hi.cc.u32  %9, %17, %23, %9;\n\t"
+      "addc.u32        %10, %10, 0;\n\t"
+      "mad.lo.cc.u32   %5, %18, %19, %5;\n\t"
+      "madc.lo.cc.u32  %6, %18, %20, %6;\n\t"
+      "madc.lo.cc.u32  %7, %18, %21, %7;\n\t"
+      "madc.lo.cc.u32  %8, %18, %22, %8;\n\t"
+      "madc.lo.cc.u32  %9, %18, %23, %9;\n\t"
+      "addc.u32        %10, %10, 0;\n\t"
+      "mad.hi.cc.u32   %6, %18, %19, %6;\n\t"
+      "madc.hi.cc.u32  %7, %18, %20, %7;\n\t"
+      "madc.hi.cc.u32  %8, %18, %21, %8;\n\t"
+      "madc.hi.cc.u32  %9, %18, %22, %9;\n\t"
+      "madc.hi.cc.u32  %10, %18, %23, %10;\n\t"
+      "addc.u32        %11, %11, 0;\n\t"
+      "mad.lo.cc.u32   %7, %19, %20, %7;\n\t"
+      "madc.lo.cc.u32  %8, %19, %21, %8;\n\t"
+      "madc.lo.cc.u32  %9, %19, %22, %9;\n\t"
+      "madc.lo.cc.u32  %10, %19, %23, %10;\n\t"
+      "addc.u32        %11, %11, 0;\n\t"
+      "mad.hi.cc.u32   %8, %19, %20, %8;\n\t"
+      "madc.hi.cc.u32  %9, %19, %21, %9;\n\t"
+      "madc.hi.cc.u32  %10, %19, %22, %10;\n\t"
+      "madc.hi.cc.u32  %11, %19, %23, %11;\n\t"
+      "addc.u32        %12, %12, 0;\n\t"
+      "mad.lo.cc.u32   %9, %20, %21, %9;\n\t"
+      "madc.lo.cc.u32  %10, %20, %22, %10;\n\t"
+      "madc.lo.cc.u32  %11, %20, %23, %11;\n\t"
+      "addc.u32        %12, %12, 0;\n\t"
+      "mad.hi.cc.u32   %10, %20, %21, %10;\n\t"
+      "madc.hi.cc.u32  %11, %20, %22, %11;\n\t"
+      "madc.hi.cc.u32  %12, %20, %23, %12;\n\t"
+      "addc.u32        %13, %13, 0;\n\t"
+      "mad.lo.cc.u32   %11, %21, %22, %11;\n\t"
+      "madc.lo.cc.u32  %12, %21, %23, %12;\n\t"
+      "addc.u32        %13, %13, 0;\n\t"
+      "mad.hi.cc.u32   %12, %21, %22, %12;\n\t"
+      "madc.hi.cc.u32  %13, %21, %23, %13;\n\t"
+      "addc.u32        %14, %14, 0;\n\t"
+      "mad.lo.cc.u32   %13, %22, %23, %13;\n\t"
+      "addc.u32        %14, %14, 0;\n\t"
+      "mad.hi.cc.u32   %14, %22, %23, %14;\n\t"
+      "addc.u32        %15, %15, 0;\n\t"
+      "add.cc.u32      %1, %1, %1;\n\t"
+      "addc.cc.u32     %2, %2, %2;\n\t"
+      "addc.cc.u32     %3, %3, %3;\n\t"
+      "addc.cc.u32     %4, %4, %4;\n\t"
+      "addc.cc.u32     %5, %5, %5;\n\t"
+      "addc.cc.u32     %6, %6, %6;\n\t"
+      "addc.cc.u32     %7, %7, %7;\n\t"
+      "addc.cc.u32     %8, %8, %8;\n\t"
+      "addc.cc.u32     %9, %9, %9;\n\t"
+      "addc.cc.u32     %10, %10, %10;\n\t"
+      "addc.cc.u32     %11, %11, %11;\n\t"
+      "addc.cc.u32     %12, %12, %12;\n\t"
+      "addc.cc.u32     %13, %13, %13;\n\t"
+      "addc.cc.u32     %14, %14, %14;\n\t"
+      "addc.u32        %15, %15, %15;\n\t"
+      "mad.lo.cc.u32   %0, %16, %16, %0;\n\t"
+      "madc.hi.cc.u32  %1, %16, %16, %1;\n\t"
+      "madc.lo.cc.u32  %2, %17, %17, %2;\n\t"
+      "madc.hi.cc.u32  %3, %17, %17, %3;\n\t"
+      "madc.lo.cc.u32  %4, %18, %18, %4;\n\t"
+      "madc.hi.cc.u32  %5, %18, %18, %5;\n\t"
+      "madc.lo.cc.u32  %6, %19, %19, %6;\n\t"
+      "madc.hi.cc.u32  %7, %19, %19, %7;\n\t"
+      "madc.lo.cc.u32  %8, %20, %20, %8;\n\t"
+      "madc.hi.cc.u32  %9, %20, %20, %9;\n\t"
+      "madc.lo.cc.u32  %10, %21, %21, %10;\n\t"
+      "madc.hi.cc.u32  %11, %21, %21, %11;\n\t"
+      "madc.lo.cc.u32  %12, %22, %22, %12;\n\t"
+      "madc.hi.cc.u32  %13, %22, %22, %13;\n\t"
+      "madc.lo.cc.u32  %14, %23, %23, %14;\n\t"
+      "madc.hi.u32     %15, %23, %23, %15;\n\t"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13]), "+r"(t[14]),
+        "+r"(t[15])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]),
+        "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]));
+}
+
+// Montgomery square a^2/R mod p, equal to mont_mul(a, a) word for word.
+// T = a^2 (sqr_wide), then Montgomery reduction of its low half alone:
+// u = (T_lo + M p) / R with M = -T p^-1 mod R, eight rows of m*p in the
+// CIOS window, and the result T_hi + u = (T + M p) / R.  For a < p,
+// T_hi < p^2 / R < p / 4 and u <= p, so one conditional subtraction
+// leaves it in [0, p).  208 multiply-adds against mont_mul's 264.
 template <int F>
 __device__ __forceinline__ Fe mont_sqr(const Fe& a) {
-  return mont_mul<F>(a, a);
+  uint32_t T[2 * NW];
+  sqr_wide(T, a);
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) t[k] = T[k];
+  t[NW] = t[NW + 1] = 0;
+  const Fe p = modulus<F>();
+  const uint32_t inv = MONT_INV[F];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint32_t m = t[0] * inv;
+    mad_row(t, p, m);  // makes t[0] zero; the window stays below 2^288
+#pragma unroll
+    for (int k = 0; k < NW + 1; ++k) t[k] = t[k + 1];
+    t[NW + 1] = 0;
+  }
+  Fe u, hi, r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    u.w[k] = t[k];
+    hi.w[k] = T[NW + k];
+  }
+  add8(r, u, hi);  // below 5p/4 + 1 < 2^255: no carry out
+  return cond_sub_p<F>(r);
 }
 
 }  // namespace h2

@@ -95,43 +95,79 @@ __global__ void mul_tiled_kernel(const uint32_t* __restrict__ a,
   }
 }
 
-// A static exponent: little-endian 32-bit words and its bit length.
-struct Exponent {
-  uint32_t w[NW];
-  int nbits;
+// A static exponent as a sliding-window schedule, made on the host
+// (cuda_ops.pow_schedule): `entries` odd powers x, x^3, ..., x^(2 entries
+// - 1) are built first; r starts at odd power `first` (-1: e = 0, r = 1);
+// then each step squares r (step >> 4) times and, where (step & 15) is
+// not 0, multiplies it by odd power (step & 15) - 1.
+constexpr int POW_MAX_STEPS = 256;
+constexpr int POW_MAX_ENTRIES = 8;  // windows of up to 4 bits
+
+struct PowSchedule {
+  uint16_t step[POW_MAX_STEPS];
+  int32_t nsteps;
+  int32_t first;
+  int32_t entries;
 };
 
+// odd power j of this thread: word k at tab[(j * NW + k) * THREADS + t], so
+// the threads of a warp read 32 consecutive words, one bank each
+__device__ __forceinline__ void put_odd(uint32_t* tab, int j, const Fe& v) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    tab[(j * NW + k) * THREADS + threadIdx.x] = v.w[k];
+}
+
+__device__ __forceinline__ Fe get_odd(const uint32_t* tab, int j) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    r.w[k] = tab[(j * NW + k) * THREADS + threadIdx.x];
+  return r;
+}
+
 // out[i] = a[i]^e.  Stands for halo2_tpu/fields/limbs.py:533 pow_static
-// (a lax.scan over the exponent's bits): square and multiply, most
-// significant bit first, in registers.  One element a thread; the exponent
-// is the same for every thread, so the branch never diverges.  Bound by
-// operations: a 254-bit exponent is some 380 dependent products of 264
-// integer multiply-adds, on 128 bytes moved an element.  Its caller is the
-// square root (q + 1) / 4 of a params file's points (curves/g1.py
-// points_from_bytes); inversions go to inv_kernel.
+// (a lax.scan of square and multiply over the exponent's bits).  Here a
+// sliding window: for the square root's (q + 1) / 4 (252 bits, 109 set)
+// 305 products with windows of 4 bits against 359 by square and multiply.
+// One element a thread; each thread keeps its odd powers in its own
+// column of shared memory (8 x 32 bytes), the schedule is the same for
+// every thread (kernel parameters, read uniformly), so no branch diverges.
+// 251 of the 305 are squares (mont_sqr).  Bound by operations: a product
+// is 264 integer multiply-adds, a square 208, on 128 bytes moved an
+// element.  0^e = 0 for e > 0 and x^0 = 1.  Its caller is the square root
+// of a params file's points (curves/g1.py points_from_bytes); inversions
+// go to inv_kernel.
 template <int F>
-__global__ void pow_kernel(const uint32_t* __restrict__ a, int64_t a_ls,
-                           int64_t a_es, uint32_t* __restrict__ out,
-                           int64_t n, Exponent e) {
+__global__ void __launch_bounds__(THREADS) pow_kernel(
+    const uint32_t* __restrict__ a, int64_t a_ls, int64_t a_es,
+    uint32_t* __restrict__ out, int64_t n, PowSchedule sc) {
+  __shared__ uint32_t tab[POW_MAX_ENTRIES * NW * THREADS];
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += step) {
     Fe r;
-    if (e.nbits == 0) {
+    if (sc.first < 0) {
       r = one_mont<F>();
     } else {
       const Fe x = load_fe(a, a_ls, i * a_es);
-      r = x;
-      // the words are indexed statically (unrolled), so the exponent
-      // stays in the parameter bank; bits from nbits - 2 down to 0
-#pragma unroll
-      for (int k = NW - 1; k >= 0; --k) {
-        const uint32_t word = e.w[k];
-        for (int b = 31; b >= 0; --b) {
-          if (32 * k + b > e.nbits - 2) continue;
-          r = mont_sqr<F>(r);
-          if ((word >> b) & 1u) r = mont_mul<F>(r, x);
+      put_odd(tab, 0, x);
+      if (sc.entries > 1) {
+        const Fe x2 = mont_sqr<F>(x);
+        Fe y = x;
+#pragma unroll 1
+        for (int j = 1; j < sc.entries; ++j) {
+          y = mont_mul<F>(y, x2);
+          put_odd(tab, j, y);
         }
+      }
+      r = get_odd(tab, sc.first);
+#pragma unroll 1
+      for (int s = 0; s < sc.nsteps; ++s) {
+        const uint32_t st = sc.step[s];
+#pragma unroll 1
+        for (uint32_t q = st >> 4; q > 0; --q) r = mont_sqr<F>(r);
+        if (st & 15u) r = mont_mul<F>(r, get_odd(tab, (int)(st & 15u) - 1));
       }
     }
     store_fe(out, n, i, r);
@@ -697,27 +733,45 @@ int h2_mul_tiled(int field, const void* a, const void* t, void* out,
   return (int)cudaGetLastError();
 }
 
-// words: the exponent's 8 little-endian 32-bit words; nbits its length
+// steps: nsteps words of the schedule (PowSchedule), from
+// cuda_ops.pow_schedule; first = -1 for e = 0
 int h2_field_pow(int field, const void* a, long long a_ls, long long a_es,
-                 void* out, long long n, const unsigned int* words,
-                 int nbits, void* stream) {
+                 void* out, long long n, const unsigned short* steps,
+                 int nsteps, int first, int entries, void* stream) {
   if (n <= 0) return 0;
-  if (nbits < 0 || nbits > 32 * NW) return (int)cudaErrorInvalidValue;
-  Exponent e;
-  for (int k = 0; k < NW; ++k) e.w[k] = words[k];
-  e.nbits = nbits;
+  if (nsteps < 0 || nsteps > POW_MAX_STEPS || entries < 1 ||
+      entries > POW_MAX_ENTRIES || first >= entries)
+    return (int)cudaErrorInvalidValue;
+  PowSchedule sc;
+  for (int k = 0; k < POW_MAX_STEPS; ++k)
+    sc.step[k] = k < nsteps ? steps[k] : 0;
+  for (int k = 0; k < nsteps; ++k)
+    if ((int)(sc.step[k] & 15u) > entries) return (int)cudaErrorInvalidValue;
+  sc.nsteps = nsteps;
+  sc.first = first;
+  sc.entries = entries;
   cudaStream_t s = (cudaStream_t)stream;
   const int g = grid_for(n);
   if (field == FR) {
     pow_kernel<FR><<<g, THREADS, 0, s>>>((const uint32_t*)a, a_ls, a_es,
-                                         (uint32_t*)out, n, e);
+                                         (uint32_t*)out, n, sc);
   } else if (field == FQ) {
     pow_kernel<FQ><<<g, THREADS, 0, s>>>((const uint32_t*)a, a_ls, a_es,
-                                         (uint32_t*)out, n, e);
+                                         (uint32_t*)out, n, sc);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks of THREADS threads a multiprocessor can hold for kernel
+// `which` (0 pow on Fr, 1 pow on Fq), from the CUDA occupancy calculator.
+int h2_field_occupancy(int which, int* blocks) {
+  const void* fns[] = {(const void*)pow_kernel<FR>,
+                       (const void*)pow_kernel<FQ>};
+  if (which < 0 || which >= 2) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fns[which], THREADS, 0);
 }
 
 // p30, pinv30, r3, batches: InvConsts, from cuda_ops.inv_constants

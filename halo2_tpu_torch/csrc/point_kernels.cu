@@ -3,8 +3,9 @@
 // packed words with a sign, the MSM's whole bucket scan of a window group
 // (one thread a lane, the running sum in registers), the MSM's Horner
 // combine over windows (a group of 8 threads a lane, one product a
-// thread), and the double-and-add ladder of a scalar multiplication (one
-// thread a point).  Coordinates are
+// thread), the double-and-add ladder of a scalar multiplication (one
+// thread a point), and the fixed-base comb that multiplies the generator
+// in the SRS setup (one thread a point).  Coordinates are
 // (16, n) limb arrays, see field.cuh.  Plain C interface: every entry point
 // launches on the given stream and returns cudaGetLastError() as an int.
 #include <cuda_runtime.h>
@@ -353,7 +354,9 @@ __global__ void __launch_bounds__(THREADS) point_horner_kernel(
 // bit is set, then base = 2 * base (not after the last bit).  One thread a
 // point.  Stands for halo2_tpu/curves/g1.py:141 scalar_mul (a lax.scan
 // over the bits); the same sequence of complete formulas as the plain
-// version, so the projective limbs are equal.  Bound by operations: up to
+// version, so the projective limbs are equal.  No driven path runs it:
+// setup multiplies the generator only, by fixed_base_kernel.  Bound by
+// operations: up to
 // 256 adds and 255 doublings a point, some 5,100 products of 264 integer
 // multiply-adds, on 160 bytes in and 192 out.
 __global__ void __launch_bounds__(THREADS) point_ladder_kernel(
@@ -383,13 +386,59 @@ __global__ void __launch_bounds__(THREADS) point_ladder_kernel(
   }
 }
 
+// k_i * G for the one affine base G of a fixed-base table and
+// standard-form scalar limbs: the comb of windows of c = 8 bits (the
+// reference's own fixed-base method, halo2_tpu/curves/host.py
+// fixed_base_mul, which its setup runs on the CPU).  Row w * 256 + d of
+// `tab` is the affine point d * 2^(8w) * G as 16 packed words (two 16-bit
+// limbs a word, words 0-7 x, 8-15 y; row d = 0 of each window is never
+// used); 32 windows, 8,192 rows, 512 KiB, which stay in L2.  One thread a
+// point: from the identity, for w = 0..31, acc = add_mixed(acc, T[w][d_w])
+// where byte w of the scalar d_w is not 0; a select keeps acc where it is.
+// The same sequence of complete formulas as g1.plain_fixed_base_mul, so
+// the projective limbs are equal.  It replaces the double-and-add ladder
+// (point_ladder_kernel) in Params.unsafe_setup: 32 mixed adds a point, no
+// doublings, against 255 doublings and up to 256 adds.  Each thread reads
+// its 64-byte row of a window straight from L2 (two sectors, all of them
+// used); bound by operations: 11 products of 264 integer multiply-adds and
+// 25 additions a window, on 64 bytes in and 192 out a point.
+__global__ void __launch_bounds__(THREADS) fixed_base_kernel(
+    const uint4* __restrict__ tab, const uint32_t* __restrict__ s,
+    int64_t s_ls, int64_t s_es, uint32_t* __restrict__ ox,
+    uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    Pt acc;                                   // the identity (0 : 1 : 0)
+    acc.x = fe_zero();
+    acc.y = one_mont<FQ>();
+    acc.z = fe_zero();
+#pragma unroll 1
+    for (int w = 0; w < 2 * NL; ++w) {
+      const uint32_t limb = s[(int64_t)(w >> 1) * s_ls + i * s_es];
+      const uint32_t d = (limb >> (8 * (w & 1))) & 0xFFu;
+      const uint4* row = tab + (int64_t)(w * 256 + d) * 4;
+      const uint4 r0 = __ldg(row), r1 = __ldg(row + 1);
+      const uint4 r2 = __ldg(row + 2), r3 = __ldg(row + 3);
+      Fe x2, y2;
+      x2.w[0] = r0.x; x2.w[1] = r0.y; x2.w[2] = r0.z; x2.w[3] = r0.w;
+      x2.w[4] = r1.x; x2.w[5] = r1.y; x2.w[6] = r1.z; x2.w[7] = r1.w;
+      y2.w[0] = r2.x; y2.w[1] = r2.y; y2.w[2] = r2.z; y2.w[3] = r2.w;
+      y2.w[4] = r3.x; y2.w[5] = r3.y; y2.w[6] = r3.z; y2.w[7] = r3.w;
+      const Pt sum = add_mixed(acc, x2, y2);
+      if (d != 0) acc = sum;
+    }
+    store_pt(ox, oy, oz, n, i, acc);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Resident blocks of THREADS threads a multiprocessor can hold for kernel
 // `which` (0 add, 1 add_mixed, 2 double, 3 add_mixed_packed, 4 horner,
-// 5 ladder, 6 msm_scan), from the CUDA occupancy calculator.
+// 5 ladder, 6 msm_scan, 7 fixed_base), from the CUDA occupancy calculator.
 int h2_point_occupancy(int which, int* blocks) {
   const void* fns[] = {(const void*)point_add_kernel,
                        (const void*)point_add_mixed_kernel,
@@ -397,8 +446,9 @@ int h2_point_occupancy(int which, int* blocks) {
                        (const void*)add_mixed_packed_kernel,
                        (const void*)point_horner_kernel,
                        (const void*)point_ladder_kernel,
-                       (const void*)msm_scan_kernel};
-  if (which < 0 || which >= 7) return (int)cudaErrorInvalidValue;
+                       (const void*)msm_scan_kernel,
+                       (const void*)fixed_base_kernel};
+  if (which < 0 || which >= 8) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, fns[which], THREADS, 0);
 }
@@ -485,6 +535,18 @@ int h2_point_ladder(const void* x, const void* y, long long p_ls,
       (const uint32_t*)x, (const uint32_t*)y, p_ls, p_es,
       (const uint32_t*)s, s_ls, s_es, (uint32_t*)ox, (uint32_t*)oy,
       (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// tab: (8192, 16) packed rows, 16-byte aligned (see fixed_base_kernel);
+// s: standard-form scalar limbs, limb stride s_ls, element stride s_es
+int h2_fixed_base(const void* tab, const void* s, long long s_ls,
+                  long long s_es, void* ox, void* oy, void* oz, long long n,
+                  void* stream) {
+  if (n <= 0) return 0;
+  fixed_base_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint4*)tab, (const uint32_t*)s, s_ls, s_es, (uint32_t*)ox,
+      (uint32_t*)oy, (uint32_t*)oz, n);
   return (int)cudaGetLastError();
 }
 

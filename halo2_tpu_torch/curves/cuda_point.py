@@ -23,10 +23,13 @@ JAX package compiles it into one `lax.scan`:
                `_combine_windows`) and the Abel sum's M * E_M doublings
                (msm/sorted.py), a group of 8 threads a lane
   scalar_mul   the double-and-add ladder of `g1.scalar_mul`
+  fixed_base_mul  `g1.fixed_base_mul`: k * G for the generator G by a comb
+               of 32 windows of 8 bits over a table of 8,160 points (the
+               SRS setup's point multiplications)
 
 Their plain versions are `plain_msm_scan` (the steps as a loop of
-`plain_add_mixed_packed`) and the composed loops `g1.plain_horner` and
-`g1.plain_scalar_mul`, on `plain_point`.
+`plain_add_mixed_packed`) and the composed loops `g1.plain_horner`,
+`g1.plain_scalar_mul` and `g1.plain_fixed_base_mul`, on `plain_point`.
 
 What bounds them on an H100: an add is 12 Montgomery products of 264
 integer multiply-adds and some 29 additions on 576 bytes (six coordinates
@@ -42,8 +45,8 @@ operations: a group of threads runs each operation's products side by
 side.
 
 A wrapper launches its kernel for CUDA tensors and uses the plain version
-only for tensors on the CPU; `horner` and `scalar_mul` take CUDA tensors
-only.
+only for tensors on the CPU; `horner`, `scalar_mul` and `fixed_base_mul`
+take CUDA tensors only.
 `launch_counts` counts launches.
 
 The plain versions follow curves/formulas.py operation for operation, but
@@ -68,7 +71,7 @@ LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 
 launch_counts = {"point_op": 0, "add_mixed_packed": 0, "msm_scan": 0,
-                 "horner": 0, "ladder": 0}
+                 "horner": 0, "ladder": 0, "fixed_base": 0}
 
 _N_IN = {"add": 6, "add_mixed": 5, "double": 3}
 
@@ -261,10 +264,12 @@ def typed(lib):
     lib.h2_point_ladder.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, vp, vp,
                                     ll, vp]
     lib.h2_msm_scan.argtypes = [vp] * 3 + [ll] + [ci] * 3 + [vp] * 8
+    lib.h2_fixed_base.argtypes = [vp, vp, ll, ll, vp, vp, vp, ll, vp]
     lib.h2_point_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
     for fn in (lib.h2_point_add, lib.h2_point_add_mixed, lib.h2_point_double,
                lib.h2_add_mixed_packed, lib.h2_point_horner,
-               lib.h2_point_ladder, lib.h2_msm_scan, lib.h2_point_occupancy):
+               lib.h2_point_ladder, lib.h2_msm_scan, lib.h2_fixed_base,
+               lib.h2_point_occupancy):
         fn.restype = ci
     return lib
 
@@ -275,7 +280,7 @@ def _lib():
 
 
 OCCUPANCY_KERNELS = ("add", "add_mixed", "double", "add_mixed_packed",
-                     "horner", "ladder", "msm_scan")
+                     "horner", "ladder", "msm_scan", "fixed_base")
 
 
 def occupancy(lib=None) -> dict:
@@ -501,4 +506,35 @@ def scalar_mul(p_aff, scalars_std: torch.Tensor):
                      y2.data_ptr(), *x2.stride(), s2.data_ptr(), *s2.stride(),
                      *[o.data_ptr() for o in out], n)
         launch_counts["ladder"] += 1
+    return out
+
+
+# the comb table's rows: 32 windows of 256 digits
+FIXED_BASE_ROWS = 32 * 256
+
+
+def fixed_base_mul(rows: torch.Tensor, scalars_std: torch.Tensor):
+    """One launch for CUDA tensors: k_i * G for standard-form scalar limbs
+    (16, *B) and the comb table `rows` of G, (8192, 16) packed words
+    (g1.FixedBaseTable).  Returns projective (X, Y, Z) of the scalars'
+    shape.  The plain version is g1.plain_fixed_base_mul."""
+    shape, device = scalars_std.shape, scalars_std.device
+    _cuda_only("fixed_base_mul", device)
+    if len(shape) < 1 or shape[0] != N_LIMBS:
+        raise ValueError(f"fixed_base_mul: expected (16, ...) limbs, got "
+                         f"{tuple(shape)}")
+    _check("fixed_base_mul scalars", scalars_std, shape, device)
+    _check("fixed_base_mul rows", rows, (FIXED_BASE_ROWS, N_LIMBS), device)
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("fixed_base_mul: rows must be contiguous and "
+                         "16-byte aligned")
+    n = scalars_std.numel() // N_LIMBS
+    s2 = scalars_std.reshape(N_LIMBS, n)
+    out = tuple(torch.empty(shape, dtype=torch.int32, device=device)
+                for _ in range(3))
+    if n:
+        build.launch(device, _lib().h2_fixed_base, rows.data_ptr(),
+                     s2.data_ptr(), *s2.stride(),
+                     *[o.data_ptr() for o in out], n)
+        launch_counts["fixed_base"] += 1
     return out

@@ -6,7 +6,8 @@ Montgomery-form Fq limb tensor (see fields/limbs.py).  All group ops are
 branch-free **complete formulas** (Renes-Costello-Batina 2015, homogeneous
 projective, a = 0), so they run over the batch axis with no data-dependent
 control flow: one thread per point in the kernels of curves/cuda_point.py,
-which `add`, `add_mixed`, `double`, `horner` and `scalar_mul` go through.
+which `add`, `add_mixed`, `double`, `horner`, `scalar_mul` and
+`fixed_base_mul` go through.
 
 Identity (group zero) in homogeneous projective coordinates is (0 : 1 : 0).
 The device is that of the operands; constructors take it explicitly.
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from halo2_tpu_torch.curves import cuda_point
+from halo2_tpu_torch.curves import cuda_point, host
 from halo2_tpu_torch.fields.bn254 import fq
 from halo2_tpu_torch.fields.limbs import (N_LIMBS, eq, is_zero, to_numpy,
                                           to_tensor)
@@ -134,8 +135,9 @@ def scalar_mul(p_aff, scalars_std):
     scalars_std: (16, *batch) limbs in STANDARD form (not Montgomery) — the
     bit pattern is the actual scalar.  Double-and-add over all 256 bits,
     least significant first: one kernel launch for CUDA tensors
-    (curves/cuda_point.py), the plain version on the CPU.  Used for SRS
-    setup; MSM uses the Pippenger path in halo2_tpu_torch.msm instead."""
+    (curves/cuda_point.py), the plain version on the CPU.  SRS setup
+    multiplies the generator only and uses `fixed_base_mul`; MSM uses the
+    Pippenger path in halo2_tpu_torch.msm."""
     if p_aff[0].device.type == "cuda":
         return cuda_point.scalar_mul(p_aff, scalars_std)
     return plain_scalar_mul(p_aff, scalars_std)
@@ -152,6 +154,76 @@ def plain_scalar_mul(p_aff, scalars_std):
         acc = select(bit == 1, cuda_point.plain_point("add", acc, base), acc)
         if j < 255:
             base = cuda_point.plain_point("double", base)
+    return acc
+
+
+# the fixed-base comb of the generator: windows of FB_BITS bits, a row for
+# every digit of every window (digit 0's row is zeros and never added)
+FB_BITS = 8
+FB_WINDOWS = 256 // FB_BITS
+FB_DIGITS = 1 << FB_BITS
+
+_FB_TABLES: dict = {}
+
+
+class FixedBaseTable:
+    """d * 2^(8w) * G for the generator G, every window w < 32 and digit
+    d < 256, entry w * 256 + d, the d = 0 entries (0, 0), in the one form
+    the device's comb reads: on the CPU `xy`, affine Montgomery limbs
+    (2, 16, 8192), for the plain version; on a CUDA device `rows`, the
+    same points as (8192, 16) packed words (two limbs a word, words 0-7 x,
+    8-15 y), for the kernel.  The other attribute is None."""
+
+    def __init__(self, device):
+        F = fq(device)
+        pts = [(0, 0) if d == 0 else row[d - 1]
+               for row in host.fixed_base_affine(host.G1_GEN, FB_BITS)
+               for d in range(FB_DIGITS)]
+        limbs = np.stack([F.encode_np([p[0] for p in pts]),
+                          F.encode_np([p[1] for p in pts])])
+        self.xy = self.rows = None
+        if torch.device(device).type == "cuda":
+            words = limbs[:, 0::2] | (limbs[:, 1::2] << 16)     # (2, 8, N)
+            self.rows = to_tensor(np.ascontiguousarray(
+                words.reshape(16, -1).T).view(np.int32), device)
+        else:
+            self.xy = to_tensor(limbs, device)
+
+
+def fixed_base_table(device) -> FixedBaseTable:
+    """The generator's comb table on `device`, built once a process and
+    device (8,160 host points, one host inversion); "cuda" and the current
+    card's "cuda:i" share one table."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _FB_TABLES:
+        _FB_TABLES[device] = FixedBaseTable(device)
+    return _FB_TABLES[device]
+
+
+def fixed_base_mul(scalars_std):
+    """k_i * G for the generator G: scalars_std (16, *batch) limbs in
+    STANDARD form, any value below 2^256.  The comb over 32 windows of 8
+    bits (the reference's fixed-base method, host.fixed_base_mul): one
+    kernel launch for CUDA tensors (curves/cuda_point.py), the plain
+    version on the CPU.  Returns projective (X, Y, Z).  Used for SRS
+    setup, where every point is a multiple of G."""
+    table = fixed_base_table(scalars_std.device)
+    if scalars_std.device.type == "cuda":
+        return cuda_point.fixed_base_mul(table.rows, scalars_std)
+    return plain_fixed_base_mul(table.xy, scalars_std)
+
+
+def plain_fixed_base_mul(table_xy, scalars_std):
+    """`fixed_base_mul`'s plain version, on any device: from the identity,
+    for each window w, a plain complete mixed add of entry (w, byte w of
+    the scalar), kept where the byte is not 0."""
+    acc = identity(scalars_std.shape[1:], scalars_std.device)
+    for w in range(FB_WINDOWS):
+        d = (scalars_std[w // 2].to(torch.int64) >> (8 * (w % 2))) & 0xFF
+        q = tuple(c[:, w * FB_DIGITS + d] for c in table_xy)
+        acc = select(d != 0, cuda_point.plain_point("add_mixed", acc, q), acc)
     return acc
 
 

@@ -181,6 +181,27 @@ def fixed_base_tables(base, c: int = 8, bits: int = 256):
     return tab
 
 
+def fixed_base_affine(base, c: int = 8, bits: int = 256):
+    """fixed_base_tables(base) in affine form, d = 0 left out:
+    out[w][d - 1] = d * 2^(c*w) * base as (x, y), d in [1, 2^c).  One
+    inversion for all the Z's (Montgomery's trick), not one a point."""
+    jac = [p for row in fixed_base_tables(base, c, bits) for p in row[1:]]
+    prefix, acc = [], 1
+    for _, _, z in jac:
+        prefix.append(acc)
+        acc = acc * z % Q
+    inv = pow(acc, Q - 2, Q)
+    flat = [None] * len(jac)
+    for i in range(len(jac) - 1, -1, -1):
+        x, y, z = jac[i]
+        zinv = inv * prefix[i] % Q
+        inv = inv * z % Q
+        zinv2 = zinv * zinv % Q
+        flat[i] = (x * zinv2 % Q, y * zinv2 * zinv % Q)
+    per = (1 << c) - 1
+    return [flat[w * per:(w + 1) * per] for w in range(len(flat) // per)]
+
+
 def fixed_base_mul(tables, k: int, c: int = 8):
     """k * base using a precomputed fixed_base_tables(base)."""
     acc = JAC_IDENT

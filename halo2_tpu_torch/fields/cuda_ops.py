@@ -15,9 +15,9 @@ place of one Pallas TPU kernel of halo2_tpu/fields/pallas_ops.py:
 and three that run a chain inside the kernel, where the JAX package
 compiles a `lax.scan` (halo2_tpu/fields/limbs.py):
 
-  pow_static  `Field.pow_static`: square and multiply over a static
-              exponent, one launch (the square roots of a params file's
-              points)
+  pow_static  `Field.pow_static`: a static exponent as a sliding-window
+              schedule made here (`pow_schedule`), one launch (the square
+              roots of a params file's points)
   inv         `Field.inv`: the inverse by safegcd (Bernstein-Yang
               divsteps in libsecp256k1's 32-bit form), one launch; it
               stands for the reference's pow_static(p - 2)
@@ -251,14 +251,17 @@ def _lib():
                                  vp]
     lib.h2_mul_tiled.argtypes = [ci, vp, vp, vp, ll, ll, vp]
     lib.h2_field_pow.argtypes = [ci, vp, ll, ll, vp, ll,
-                                 ctypes.POINTER(ctypes.c_uint32), ci, vp]
+                                 ctypes.POINTER(ctypes.c_uint16), ci, ci, ci,
+                                 vp]
+    lib.h2_field_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
     lib.h2_field_inv.argtypes = [ci, vp, ll, ll, vp, ll,
                                  ctypes.POINTER(ctypes.c_int32),
                                  ctypes.c_uint32,
                                  ctypes.POINTER(ctypes.c_uint32), ci, vp]
     lib.h2_scan.argtypes = [ci, ci, vp, ll, ll, vp, ll, ll, ll, vp, ll, vp]
     for fn in (lib.h2_field_binop, lib.h2_butterfly, lib.h2_mul_tiled,
-               lib.h2_field_pow, lib.h2_field_inv, lib.h2_scan):
+               lib.h2_field_pow, lib.h2_field_occupancy, lib.h2_field_inv,
+               lib.h2_scan):
         fn.restype = ci
     return lib
 
@@ -341,12 +344,60 @@ def binop(op: str, field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def exponent_words(e: int):
-    """A static exponent as the pow kernel takes it: eight little-endian
-    32-bit words and the bit length."""
+# the pow kernel's odd powers: windows of at most POW_WINDOW_MAX bits
+# (2^(w-1) odd powers, 32 bytes each, in the thread's column of shared
+# memory), at most POW_MAX_STEPS steps (csrc/field_kernels.cu)
+POW_WINDOW_MAX = 4
+POW_MAX_STEPS = 256
+
+
+def _windows(e: int, w: int):
+    """The sliding windows of e, most significant first: [(value, start
+    bit)], each value odd and below 2^w, its lowest bit at `start`."""
+    out, i = [], e.bit_length() - 1
+    while i >= 0:
+        if not (e >> i) & 1:
+            i -= 1
+            continue
+        lo = max(i - w + 1, 0)
+        while not (e >> lo) & 1:
+            lo += 1
+        out.append(((e >> lo) & ((1 << (i - lo + 1)) - 1), lo))
+        i = lo - 1
+    return out
+
+
+def pow_schedule(e: int) -> dict:
+    """The pow kernel's plan for x^e, e in [0, 2^256): the window width w
+    (1 to POW_WINDOW_MAX) that takes the fewest products, the odd powers
+    x, x^3, ..., x^(2 entries - 1) it builds (`entries` = 2^(w-1)), the odd
+    power r starts from (`first`, an index into them; -1 for e = 0, where
+    r = 1), and `words`, the steps as the kernel reads them: r squared
+    (word >> 4) times, then multiplied by odd power (word & 15) - 1 where
+    (word & 15) is not 0.  `products` counts every Montgomery product, the
+    odd powers' included: `squarings` of them (mont_sqr, x^2 and the
+    steps') and `multiplies` (mont_mul)."""
     if not 0 <= e < 1 << 256:
         raise ValueError("pow_static: the exponent must lie in [0, 2^256)")
-    return [(e >> (32 * k)) & 0xFFFFFFFF for k in range(8)], e.bit_length()
+    if e == 0:
+        return {"window": 1, "entries": 1, "first": -1, "words": [],
+                "products": 0, "squarings": 0, "multiplies": 0}
+    best = None
+    for w in range(1, POW_WINDOW_MAX + 1):
+        wins = _windows(e, w)
+        words = [((prev_lo - lo) << 4) | ((val >> 1) + 1)
+                 for (_, prev_lo), (val, lo) in zip(wins, wins[1:])]
+        if wins[-1][1]:
+            words.append(wins[-1][1] << 4)
+        entries = 1 << (w - 1)
+        sqr = (w > 1) + sum(x >> 4 for x in words)
+        mul = entries - 1 + sum(bool(x & 15) for x in words)
+        if best is None or sqr + mul < best["products"]:
+            best = {"window": w, "entries": entries,
+                    "first": wins[0][0] >> 1, "words": words,
+                    "products": sqr + mul, "squarings": sqr,
+                    "multiplies": mul}
+    return best
 
 
 def _one_a_thread(name: str, a: torch.Tensor):
@@ -365,15 +416,31 @@ def _one_a_thread(name: str, a: torch.Tensor):
 
 def pow_static(field, a: torch.Tensor, e: int) -> torch.Tensor:
     """a**e (Montgomery form in and out) for a CUDA tensor (16, *batch), in
-    one launch; 0 -> 0 for e > 0, and e = 0 gives one everywhere.  The
-    plain version is `Field.plain_pow_static`."""
+    one launch of `pow_schedule(e)`; 0 -> 0 for e > 0, and e = 0 gives one
+    everywhere.  The plain version is `Field.plain_pow_static`: both give
+    the canonical value."""
     x, n, out = _one_a_thread("pow_static", a)
-    words, nbits = exponent_words(e)
+    plan = pow_schedule(e)
+    words = plan["words"]
     if n:
         build.launch(a.device, _lib().h2_field_pow, _FIELD_IDS[field.name],
                      x[0].data_ptr(), x[1], x[2], out.data_ptr(), n,
-                     (ctypes.c_uint32 * 8)(*words), nbits)
+                     (ctypes.c_uint16 * max(len(words), 1))(*words),
+                     len(words), plan["first"], plan["entries"])
         launch_counts["pow"] += 1
+    return out
+
+
+def occupancy() -> dict:
+    """Resident blocks a multiprocessor holds of the pow kernel, by field,
+    from the CUDA occupancy calculator."""
+    out = {}
+    for which, name in enumerate(_FIELD_IDS):
+        blocks = ctypes.c_int(0)
+        err = _lib().h2_field_occupancy(which, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy of pow/{name}: CUDA error {err}")
+        out[f"pow/{name}"] = blocks.value
     return out
 
 

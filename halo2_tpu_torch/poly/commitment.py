@@ -6,8 +6,9 @@ Analogue of halo2_proofs/src/poly/commitment.rs:
     copies exist only for (de)serialization.
   * `unsafe_setup` draws toxic s and builds both bases analytically
     (commitment.rs:56-124): the scalar tables (powers of s, Lagrange coeffs
-    L_i(s)) are exact host big-int math, the n point multiplications run as
-    one batched double-and-add on the device.
+    L_i(s)) are field operations on the device (`setup_scalars`), the n
+    point multiplications of each basis one fixed-base comb of the
+    generator (`g1.fixed_base_mul`).
   * `commit` / `commit_lagrange` wrap the Pippenger MSM
     (commitment.rs:129-222).
   * `write`/`read` reproduce the reference Params wire format (k LE u32,
@@ -28,10 +29,10 @@ import random
 import torch
 
 from halo2_tpu_torch.curves import g1, host
-from halo2_tpu_torch.fields.limbs import N_LIMBS, ints_to_limbs_np, to_tensor
+from halo2_tpu_torch.fields.bn254 import fr
 from halo2_tpu_torch.msm.distributed import msm_many_sharded
 from halo2_tpu_torch.msm.msm import msm_many
-from halo2_tpu_torch.ntt.ntt import get_ntt
+from halo2_tpu_torch.ntt.ntt import get_ntt, powers_dev
 from halo2_tpu_torch.pairing import bn254 as pairing
 from halo2_tpu_torch.transcript.blake2b import point_to_bytes
 from halo2_tpu_torch.utils import mesh as mesh_mod
@@ -176,43 +177,25 @@ class Params:
 
     # -- setup ----------------------------------------------------------
     @classmethod
-    def unsafe_setup(cls, k: int, seed: int | None = None,
-                     device="cuda") -> "Params":
+    def unsafe_setup(cls, k: int, seed: int | None = None, device="cuda",
+                     phases=None) -> "Params":
+        """The SRS of 2^k points from a toxic s drawn from `seed`.  With
+        `phases` (utils/profiling.PhaseTimes) it marks `scalars` (powers
+        of s and Lagrange values), `g`, `g_lagrange` and `s_g2`."""
         device = require_device(device)
+        mark = profiling.phase_marker(device, phases)
         rng = random.Random(seed)
         s = rng.randrange(1, R)
-        n = 1 << k
-
-        # powers of s and Lagrange evals L_i(s) — exact host math
-        powers = []
-        acc = 1
-        for _ in range(n):
-            powers.append(acc)
-            acc = acc * s % R
-
-        omega = get_ntt(k, device).omega
-        n_inv = pow(n, R - 2, R)
-        multiplier = (pow(s, n, R) - 1) * n_inv % R
-        # L_i(s) = multiplier * w^i / (s - w^i)
-        root_pows, rp = [], 1
-        for _ in range(n):
-            root_pows.append(rp)
-            rp = rp * omega % R
-        denoms = [(s - rp) % R for rp in root_pows]
-        denom_invs = _batch_inv_host(denoms, R)
-        lag = [multiplier * rp % R * di % R for rp, di in zip(root_pows, denom_invs)]
-
-        gen = g1.generator(device)
-        gen_b = (gen[0][:, None].expand(N_LIMBS, n).contiguous(),
-                 gen[1][:, None].expand(N_LIMBS, n).contiguous())
-        g_proj = g1.scalar_mul(gen_b, to_tensor(ints_to_limbs_np(powers),
-                                                device))
-        g_dev = torch.stack(g1.to_affine(g_proj))
-        gl_proj = g1.scalar_mul(gen_b, to_tensor(ints_to_limbs_np(lag),
-                                                 device))
-        gl_dev = torch.stack(g1.to_affine(gl_proj))
-
+        powers, lag = setup_scalars(k, s, device)
+        mark("scalars")
+        g_dev = torch.stack(g1.to_affine(g1.fixed_base_mul(powers)))
+        del powers
+        mark("g")
+        gl_dev = torch.stack(g1.to_affine(g1.fixed_base_mul(lag)))
+        del lag
+        mark("g_lagrange")
         s_g2 = pairing.g2_mul(pairing.G2_GEN, s)
+        mark("s_g2")
         return cls(k, g_dev, gl_dev, s_g2)
 
     # -- commitments ------------------------------------------------------
@@ -300,17 +283,20 @@ class ParamsVerifier:
         return host.msm_jacobian(self.g_lagrange[:len(values)], list(values))
 
 
-def _batch_inv_host(xs, p):
-    """Host big-int batch inversion (Montgomery trick); zeros map to zero."""
-    n = len(xs)
-    prefix = [1] * (n + 1)
-    for i, x in enumerate(xs):
-        prefix[i + 1] = prefix[i] * (x if x else 1) % p
-    inv_all = pow(prefix[n], p - 2, p)
-    out = [0] * n
-    for i in range(n - 1, -1, -1):
-        x = xs[i]
-        if x:
-            out[i] = prefix[i] * inv_all % p
-            inv_all = inv_all * x % p
-    return out
+def setup_scalars(k: int, s: int, device):
+    """The scalars of the SRS of 2^k points, as (16, 2^k) standard-form
+    limbs on `device`: the powers s^i, and the Lagrange values
+    L_i(s) = (s^n - 1) / n * w^i / (s - w^i) (w the domain's root), the
+    reference's host integers (halo2_tpu/poly/commitment.py:130-147) made
+    by the field kernels: two powers tables, a subtraction, a batch
+    inversion (zeros map to zero, as the reference's host inversion) and
+    two products."""
+    F = fr(device)
+    n = 1 << k
+    omega = get_ntt(k, device).omega
+    multiplier = (pow(s, n, R) - 1) * pow(n, R - 2, R) % R
+    s_pows = powers_dev(F, s, n)
+    root_pows = powers_dev(F, omega, n)
+    denom_invs = F.batch_inverse(F.sub(F.encode_scalar(s), root_pows))
+    lag = F.mul(F.mul(root_pows, denom_invs), F.encode_scalar(multiplier))
+    return F.from_mont(s_pows), F.from_mont(lag)

@@ -4,7 +4,7 @@ scan, the Horner combine, the scalar ladder), on the CPU.
 On the card each of these is one launch; here the tests hold what can run
 without one:
 
-  * the Python that plans the launches: the exponent's words, the scan's
+  * the Python that plans the launches: the exponent's schedule, the scan's
     tile plan for any n, the reverse scan's origin and stride, the Horner
     combine's lane and window shape, the operand strides `binop` passes
     without a copy;
@@ -91,16 +91,29 @@ def jax_side():
 @pytest.mark.parametrize("e", [0, 1, 2, 0xFFFFFFFF, 1 << 32, FR_MODULUS - 2,
                                FQ_MODULUS - 2, (1 << 256) - 1])
 def test_exponent_words(e):
-    words, nbits = cuda_ops.exponent_words(e)
-    assert len(words) == 8 and all(0 <= w < 1 << 32 for w in words)
-    assert sum(w << (32 * k) for k, w in enumerate(words)) == e
-    assert nbits == e.bit_length()
+    """The pow kernel's schedule spells e back, in words that fit the
+    kernel's step array (csrc/field_kernels.cu PowSchedule)."""
+    plan = cuda_ops.pow_schedule(e)
+    words = plan["words"]
+    assert len(words) <= cuda_ops.POW_MAX_STEPS
+    assert all(0 <= w < 1 << 16 and (w & 15) <= plan["entries"]
+               for w in words)
+    assert plan["entries"] <= 1 << (cuda_ops.POW_WINDOW_MAX - 1)
+    if e == 0:
+        assert plan["first"] == -1 and not words
+        return
+    got = 2 * plan["first"] + 1
+    for w in words:
+        got <<= w >> 4
+        if w & 15:
+            got += 2 * ((w & 15) - 1) + 1
+    assert got == e
 
 
 def test_exponent_words_refuse_what_the_kernel_cannot_hold():
     for e in (-1, 1 << 256):
         with pytest.raises(ValueError):
-            cuda_ops.exponent_words(e)
+            cuda_ops.pow_schedule(e)
 
 
 @pytest.mark.parametrize("n", [1, 2, 511, 512, 4095, 4096, 4097, 65536,

@@ -34,7 +34,8 @@ SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
            "examples.torch_fork_cost", "examples.torch_warm_proofs",
            "examples.torch_kernel_audit", "examples.torch_launch_cost",
            "examples.torch_probe_k22", "examples.torch_bench_prover",
-           "examples.torch_bench_keygen", "examples.torch_chain_probe"]
+           "examples.torch_bench_keygen", "examples.torch_chain_probe",
+           "examples.torch_setup_probe"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys
