@@ -23,8 +23,17 @@ halo2_tpu_torch/native, then:
            and each public function is shown to make its one launch; K2
            and K3 also at the chunk shapes
            the streamed extended inverse transform of the large path feeds
-           them;
-  golden   proves tests/data/torch_golden_proof.json's circuit (K = 4) with
+           them; the small MSM's bucket kernel (`msm_bucket`) against its
+           plain lane-private buckets exactly after to_affine, at n = 1,
+           7, 16, 32, 512 and 2047, full and 16-bit scalars, 1, 4 and 64
+           lanes, timed at the golden proofs' shapes, and msm_many's
+           bucket path against its sorted path;
+  golden   with the sanity checks (HALO2_TPU_SANITY_CHECKS) and the span
+           profiler (synchronising) on, and the launch counts set to 0
+           just before and read just after (every MSM there is below 2048
+           points: `msm_bucket` launches, `msm_scan` does not; the
+           report's first lines printed),
+           proves tests/data/torch_golden_proof.json's circuit (K = 4) with
            its seeds, each circuit of tests/data/torch_golden_args.json
            (a logup lookup over two input sets and a shuffle, K = 5; a range
            check, K = 5; every argument, K = 9) with its seed, and every
@@ -39,7 +48,8 @@ halo2_tpu_torch/native, then:
            bucket scan launched once a window group, the Horner kernel once
            a call, the fixed-base comb twice (setup's two bases), the 1:1
            scan step `add_mixed_packed`, the scalar ladder and `pow` never:
-           every inversion is `inv`'s), setup's seconds by phase; a proof
+           every inversion is `inv`'s; `msm_bucket` never from 2^11 rows
+           on, `msm_scan` never below), setup's seconds by phase; a proof
            with one byte flipped and a wrong instance must be rejected;
   args     the same for AllArgsCircuit over every usable row of 2^k (gate
            with a compressed selector, permutation, a shared-table logup
@@ -108,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -136,6 +147,7 @@ from halo2_tpu_torch.multiopen import BatchVerifier
 from halo2_tpu_torch.ntt import dft_matmul as dm
 from halo2_tpu_torch.ntt.distributed import DistNTT
 from halo2_tpu_torch.ntt.ntt import get_ntt
+from halo2_tpu_torch.plonk import logup_prover, permutation, shuffle_prover
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import keygen
 from halo2_tpu_torch.plonk.parallel_synthesis import default_workers
@@ -1099,6 +1111,150 @@ def _fixed_base(sh, gen, device, ptxas) -> dict:
     return e
 
 
+# the bucket path's kernel: point counts (one, ragged, the golden proofs'
+# 16, 32 and 512, the largest below SORT_BLOCK) and lane counts
+BUCKET_NS = (1, 7, 16, 32, 512, 2047)
+BUCKET_LANES = (1, 4, 64)
+# the K of the golden proof whose commitments are the widest bucket batch
+# (AllArgsCircuit, tests/data/torch_golden_args.json)
+GOLDEN_ARGS_K = 9
+# the bucket kernel's timed shapes: (label, n, columns or None for the
+# golden AllArgs proof's widest commitment batch): that batch (n = 512,
+# its columns' full windows in one launch), the K = 4 proof's single
+# column, and the largest n below SORT_BLOCK
+BUCKET_TIMED = ((f"golden K = {GOLDEN_ARGS_K}", 512, None),
+                ("golden K = 4", 16, 1), ("largest n", SORT_BLOCK - 1, 1))
+# the points of msm_many's bucket path held to its sorted path
+BUCKET_MANY_N = 512
+
+
+def _bucket_inputs(n, bits, lanes, gen, device, pts):
+    """The bucket path's kernel inputs for n points and scalars below
+    2^bits: the points padded to a multiple of `lanes` with copies of the
+    first under zero digits (as msm/msm.py pads them), and the 8-bit
+    digits of random standard-form scalars, 0, 1 and 255 among the first."""
+    s = _rand_scalars(n, gen, device)
+    s[-(-bits // 16):] = 0                   # the limbs at and above 2^bits
+    if n >= 3:
+        s[:, :3] = 0
+        s[0, 1] = 1
+        s[0, 2] = 0xFF
+    pad = (-n) % lanes
+    s = torch.nn.functional.pad(s, (0, pad))
+    px, py = (torch.cat([c[:, :n], c[:, :1].expand(N_LIMBS, pad)], dim=1)
+              for c in pts)
+    return px, py, msm._digits(s, msm.bucket_windows(bits))
+
+
+def _bucket_work(digits) -> tuple:
+    """(mixed adds, complete adds) the function needs for these digits:
+    a mixed add for every digit that is not 0, and for each row the
+    running sum's reduction (an add for every non-empty bucket after the
+    first, and one for every bucket below the top one)."""
+    R = digits.shape[0]
+    present = torch.zeros((R, cuda_point.BUCKETS), dtype=torch.int64,
+                          device=digits.device)
+    present.scatter_(1, digits.to(torch.int64), 1)
+    nonempty = present[:, 1:].sum(dim=1)
+    top = digits.max(dim=1).values.to(torch.int64)
+    reduce = (nonempty - 1).clamp(min=0) + (top - 1).clamp(min=0)
+    return int((digits != 0).sum().item()), int(reduce.sum().item())
+
+
+def _bucket_bounds(n, digits) -> dict:
+    mixed, full = _bucket_work(digits)
+    am, aa = POINT_OPS["add_mixed"]
+    cm, ca = POINT_OPS["add"]
+    R = digits.shape[0]
+    return {"mixed_adds": mixed, "complete_adds": full,
+            **_bounds(2 * N_LIMBS * WORD * n + WORD * R * n
+                      + 3 * N_LIMBS * WORD * R,
+                      am * mixed + cm * full, aa * mixed + ca * full)}
+
+
+def _affine(p):
+    return torch.stack(g1.to_affine(p))
+
+
+def _msm_bucket(gen, device, ptxas) -> dict:
+    """The bucket path's kernel: one launch, against the plain lane-private
+    buckets, exactly after to_affine (the two add in other orders, so their
+    projective limbs differ), at every n of BUCKET_NS with full and 16-bit
+    scalars and every lane count of BUCKET_LANES; timed at the golden
+    proofs' shapes; and msm_many's bucket path against its sorted path."""
+    n_max = max(BUCKET_NS + (BUCKET_MANY_N,))
+    aff, _ = _rand_points(n_max, gen, device)
+    cases = []
+    worst = 0
+    for n in BUCKET_NS:
+        for bits in (254, 16):
+            for lanes in BUCKET_LANES:
+                px, py, d = _bucket_inputs(n, bits, lanes, gen, device, aff)
+                got = _affine(cuda_point.msm_bucket(px, py, d, lanes))
+                want = _affine(cuda_point.plain_msm_bucket(px, py, d, lanes))
+                err = _max_err(got, want)
+                worst = max(worst, err)
+                cases.append({"n": n, "bits": bits, "lanes": lanes,
+                              "rows": d.shape[0], "max_abs_err": err})
+    # every scalar 0: the identity
+    px, py, d = _bucket_inputs(16, 254, 1, gen, device, aff)
+    if not bool(g1.is_identity(cuda_point.msm_bucket(
+            px, py, torch.zeros_like(d), 1)).all()):
+        raise AssertionError("msm_bucket of zero scalars is not the "
+                             "identity")
+    C = _shapes(GOLDEN_ARGS_K, "golden", AllArgsCircuit())["horner_lanes"]
+    variants = []
+    for label, n, cols in BUCKET_TIMED:
+        cols = cols or C
+        lanes = msm._pick_lanes(n)
+        parts = [_bucket_inputs(n, 254, lanes, gen, device, aff)
+                 for _ in range(cols)]
+        px, py = parts[0][0], parts[0][1]
+        d = torch.cat([p[2] for p in parts])
+        want, plain_ms = profiling.timed(
+            lambda: cuda_point.plain_msm_bucket(px, py, d, lanes))
+
+        def run():
+            return cuda_point.msm_bucket(px, py, d, lanes)
+        _expect_launches("msm_bucket", run, {"msm_bucket": 1})
+        variants.append({
+            "variant": f"{label}: n={n} lanes={lanes} rows={d.shape[0]}",
+            "max_abs_err": _max_err(_affine(run()), _affine(want)),
+            **_times(run, plain_ms), **_bucket_bounds(px.shape[1], d)})
+        del want
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    variants[0]["cases"] = cases
+    # msm_many's bucket path (one launch for both columns, a short one
+    # padded with identity windows) against its sorted path
+    n = BUCKET_MANY_N
+    pts = tuple(c[:, :n] for c in aff)
+    F = fr(device)
+    std = [_rand_scalars(n, gen, device) for _ in range(2)]
+    std[1][1:] = 0                           # below 2^16
+    cols = [F.to_mont(x) for x in std]
+    bits = [256, 16]
+    got = _launches_of(lambda: msm_many(pts, cols, bits))
+    if got.get("msm_bucket") != 1 or got.get("msm_scan") \
+            or got.get("horner") != 1:
+        raise AssertionError(f"msm_many of {n} points launched {got}, "
+                             f"expected one msm_bucket, one horner and no "
+                             f"msm_scan")
+    block = msm._block_for(n)
+    sorted_ = msm._combine_windows(
+        msm.column_totals(pts[0], pts[1], cols, bits, block),
+        window_bits_for(block))
+    if not torch.equal(_affine(msm_many(pts, cols, bits)), _affine(sorted_)):
+        raise AssertionError("msm_many's bucket path and sorted path differ")
+    variants[0]["msm_many_equals_sorted"] = True
+    e = _entry("msm_bucket", "halo2_tpu_torch/csrc/point_kernels.cu",
+               "halo2_tpu/msm/msm.py:54 _accumulate (lax.scan) + :113 "
+               "_merge_lanes + :118 _reduce_buckets", variants,
+               f"x, y (16, n), digits (rows, n), n < {SORT_BLOCK}")
+    e["blocks_per_sm"] = cuda_point.occupancy()["msm_bucket"]
+    e.update(_ptxas_of(ptxas, "msm_bucket_kernel"))
+    return e
+
+
 def phase_kernels(k: int, device, ptxas: dict) -> list:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
@@ -1127,7 +1283,8 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
                _msm_scan(sh, gen, device, pts, ptxas),
                _point_horner(shs, gen, device, pts, ptxas),
                _point_ladder(sh, gen, device, pts),
-               _fixed_base(sh, gen, device, ptxas)]
+               _fixed_base(sh, gen, device, ptxas),
+               _msm_bucket(gen, device, ptxas)]
     for e in entries:
         if e["max_abs_err"] != 0:
             raise AssertionError(
@@ -1136,7 +1293,53 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
     return entries
 
 
-def phase_golden(device):
+# the modules of the three sanity checks (HALO2_TPU_SANITY_CHECKS)
+SANITY_MODULES = (permutation, logup_prover, shuffle_prover)
+# lines of the span profiler's report printed by the golden phase
+REPORT_LINES = 24
+
+
+def phase_golden(device) -> dict:
+    """The golden proofs with the sanity checks and the span profiler on
+    (synchronising), the launch counts set to 0 just before and read just
+    after: every MSM there is of fewer than SORT_BLOCK points, so the
+    bucket kernel runs and the sorted path's scan does not.  Prints the
+    report's first lines, then the phase's line; returns the launches."""
+    saved = [m._SANITY for m in SANITY_MODULES]
+    for m in SANITY_MODULES:
+        m._SANITY = True
+    profiling.reset()
+    profiling.enable(True, sync=True)
+    _reset_counts()                          # the golden path starts here
+    try:
+        out = _golden_proofs(device)
+    finally:
+        profiling.enable(False, sync=False)
+        for m, was in zip(SANITY_MODULES, saved):
+            m._SANITY = was
+    launches = {**cuda_ops.launch_counts, **cuda_point.launch_counts}
+    counters = dict(profiling.counters)      # and ends here
+    report = profiling.report(file=io.StringIO()).splitlines()
+    if launches["msm_bucket"] < 1 or launches["msm_scan"]:
+        raise AssertionError(f"golden: msm_bucket made "
+                             f"{launches['msm_bucket']} launches and "
+                             f"msm_scan {launches['msm_scan']}, expected "
+                             f"some and none")
+    for kernel, per in LAUNCHES_PER_COUNTER:
+        if launches[kernel] != counters.get(per, 0):
+            raise AssertionError(f"golden: {kernel} made {launches[kernel]} "
+                                 f"launches for {counters.get(per, 0)} "
+                                 f"{per}")
+    print(json.dumps({"golden_profile": {
+        "sanity_checks": True, "sync": True, "report_lines": len(report),
+        "top": report[:REPORT_LINES]}}), flush=True)
+    out["launches"] = {key: v for key, v in launches.items() if v}
+    out["counters"] = counters
+    print(json.dumps({"golden": out}), flush=True)
+    return launches
+
+
+def _golden_proofs(device) -> dict:
     with open(GOLDEN) as fh:
         golden = json.load(fh)
     with open(GOLDEN_ARGS) as fh:
@@ -1173,11 +1376,9 @@ def phase_golden(device):
             raise AssertionError(f"golden proof of {name} rejected")
         args[name] = {"k": rec["k"], "proof_bytes": len(proof)}
     multi = _golden_multi(device)
-    print(json.dumps({"golden": {
-        "k": golden["k"], "seeds": sorted(golden["proofs"]),
-        "arguments": args, "multi": multi, "bytes_equal": True,
-        "verified": True,
-        "seconds": round(time.time() - t0, 2)}}), flush=True)
+    return {"k": golden["k"], "seeds": sorted(golden["proofs"]),
+            "arguments": args, "multi": multi, "bytes_equal": True,
+            "verified": True, "seconds": round(time.time() - t0, 2)}
 
 
 def _golden_multi(device) -> dict:
@@ -1243,6 +1444,39 @@ OFF_PROVE_PATH = ("add_mixed_packed", "pow", "ladder")
 # launches of the fixed-base comb a path makes: unsafe_setup's g and
 # g_lagrange
 SETUP_FIXED_BASE = 2
+# each MSM kernel's launches equal a counter: one scan a window group, one
+# Horner combine a call, one bucket launch a batch of columns
+LAUNCHES_PER_COUNTER = (("msm_scan", "msm_window_groups"),
+                        ("horner", "horner_calls"),
+                        ("msm_bucket", "msm_bucket_calls"))
+
+
+def _check_path_launches(name, n, launches, counters):
+    """The launch checks of a driven path of n rows: every kernel
+    launched but those the path never launches (OFF_PROVE_PATH and the MSM
+    kernel of the other size: every commitment of the path is an MSM of n
+    points, which takes the bucket path below SORT_BLOCK points and the
+    sorted path's scan from there on), which must have none; the
+    fixed-base comb twice; each MSM kernel once a unit of its counter."""
+    off = OFF_PROVE_PATH + (("msm_scan",) if n < SORT_BLOCK
+                            else ("msm_bucket",))
+    for kernel, count in launches.items():
+        if count <= 0 and kernel not in off:
+            raise AssertionError(f"{name}: kernel {kernel} was never "
+                                 f"launched on the path")
+    for kernel in off:
+        if launches[kernel]:
+            raise AssertionError(f"{name}: kernel {kernel} was launched "
+                                 f"{launches[kernel]} times on the path")
+    if launches["fixed_base"] != SETUP_FIXED_BASE:
+        raise AssertionError(f"{name}: fixed_base made "
+                             f"{launches['fixed_base']} launches, expected "
+                             f"{SETUP_FIXED_BASE} (setup's two bases)")
+    for kernel, per in LAUNCHES_PER_COUNTER:
+        if launches[kernel] != counters.get(per, 0):
+            raise AssertionError(f"{name}: {kernel} made {launches[kernel]} "
+                                 f"launches for {counters.get(per, 0)} "
+                                 f"{per}")
 
 
 def _rejects(pv, vk, instances_list, proof, use_gwc=True) -> bool:
@@ -1323,23 +1557,7 @@ def _drive(name, k, seed, device, circuits, instances_list,
         raise AssertionError(f"{name}: a tampered proof was accepted")
     if not wrong_rejected:
         raise AssertionError(f"{name}: a wrong instance was accepted")
-    for kernel, count in launches.items():
-        if count <= 0 and kernel not in OFF_PROVE_PATH:
-            raise AssertionError(f"{name}: kernel {kernel} was never "
-                                 f"launched on the path")
-    for kernel in OFF_PROVE_PATH:
-        if launches[kernel]:
-            raise AssertionError(f"{name}: kernel {kernel} was launched "
-                                 f"{launches[kernel]} times on the path")
-    if launches["fixed_base"] != SETUP_FIXED_BASE:
-        raise AssertionError(f"{name}: fixed_base made "
-                             f"{launches['fixed_base']} launches, expected "
-                             f"{SETUP_FIXED_BASE} (setup's two bases)")
-    for kernel, per in (("msm_scan", "msm_window_groups"),
-                        ("horner", "horner_calls")):
-        if launches[kernel] != counters[per]:
-            raise AssertionError(f"{name}: {kernel} made {launches[kernel]} "
-                                 f"launches for {counters[per]} {per}")
+    _check_path_launches(name, 1 << k, launches, counters)
     for counter, least in (min_counters or {}).items():
         if counters.get(counter, 0) < least:
             raise AssertionError(f"{name}: counter {counter} is "
@@ -1983,23 +2201,7 @@ def phase_mesh(k: int, seed: int, device) -> dict:
         raise AssertionError("mesh: the sharded proof was rejected")
     if not _rejects(pv, vk, [instances], bytes(tampered)):
         raise AssertionError("mesh: a tampered proof was accepted")
-    for kernel, count in launches.items():
-        if count <= 0 and kernel not in OFF_PROVE_PATH:
-            raise AssertionError(f"mesh: kernel {kernel} was never launched "
-                                 f"on the path")
-    for kernel in OFF_PROVE_PATH:
-        if launches[kernel]:
-            raise AssertionError(f"mesh: kernel {kernel} was launched "
-                                 f"{launches[kernel]} times on the path")
-    if launches["fixed_base"] != SETUP_FIXED_BASE:
-        raise AssertionError(f"mesh: fixed_base made "
-                             f"{launches['fixed_base']} launches, expected "
-                             f"{SETUP_FIXED_BASE}")
-    for kernel, per in (("msm_scan", "msm_window_groups"),
-                        ("horner", "horner_calls")):
-        if launches[kernel] != counters[per]:
-            raise AssertionError(f"mesh: {kernel} made {launches[kernel]} "
-                                 f"launches for {counters[per]} {per}")
+    _check_path_launches("mesh", 1 << k, launches, counters)
     if counters.get("dist_ntt_calls", 0) < 1:
         raise AssertionError("mesh: no transform went over the mesh")
     replay = _replay(record, gen, device)
@@ -2044,7 +2246,7 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "add_mixed_packed": "add_mixed_packed",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder", "fixed_base": "fixed_base",
-              "dft_epilogue": "dft_epilogue"}
+              "msm_bucket": "msm_bucket", "dft_epilogue": "dft_epilogue"}
 ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,large,mesh,dft"
 
 
@@ -2068,9 +2270,9 @@ def main(argv=None) -> int:
     phase_env(out)
     entries = phase_kernels(args.k, device, out["ptxas"]) \
         if "kernels" in phases else []
-    if "golden" in phases:
-        phase_golden(device)
     paths = {}                               # path -> its launch counts
+    if "golden" in phases:
+        paths["golden"] = phase_golden(device)
     if "prove" in phases:
         paths["prove"] = phase_prove(args.k, args.seed, device)
     if "args" in phases:

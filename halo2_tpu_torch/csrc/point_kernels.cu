@@ -4,8 +4,9 @@
 // (one thread a lane, the running sum in registers), the MSM's Horner
 // combine over windows (a group of 8 threads a lane, one product a
 // thread), the double-and-add ladder of a scalar multiplication (one
-// thread a point), and the fixed-base comb that multiplies the generator
-// in the SRS setup (one thread a point).  Coordinates are
+// thread a point), the fixed-base comb that multiplies the generator
+// in the SRS setup (one thread a point), and the small MSM's buckets and
+// their reduction (one block a window, one thread a bucket).  Coordinates are
 // (16, n) limb arrays, see field.cuh.  Plain C interface: every entry point
 // launches on the given stream and returns cudaGetLastError() as an int.
 #include <cuda_runtime.h>
@@ -432,13 +433,163 @@ __global__ void __launch_bounds__(THREADS) fixed_base_kernel(
   }
 }
 
+// The small-MSM bucket path: for each row r (a window of 8 bits of a
+// column), T_r = sum_{b >= 1} b * B_{r,b}, where B_{r,b} is the sum of the
+// affine points P_i whose digit d_{r,i} is b.  One launch stands for the
+// reference's whole bucket path below 2048 points: its lax.scan of mixed
+// adds into lane-private buckets (halo2_tpu/msm/msm.py:54 _accumulate),
+// the lane merge (:113 _merge_lanes) and the reduction (:118
+// _reduce_buckets).
+//
+// One block a row, one thread a bucket (thread b owns bucket b; bucket 0
+// is the discard bucket and takes nothing).  The reference keeps one
+// bucket column a lane so that its scatter never conflicts; here the
+// block sorts the row's points by digit in shared memory instead (a
+// histogram, its scan, a scatter of the point indices), so every thread
+// walks its own bucket's list and mixed-adds those points into the
+// running sum in its registers: no conflict, no atomics on points, and
+// the lanes of a warp run the same formula side by side.  The points come
+// in chunks of BUCKET_CHUNK.  Lanes are thus merged as they are
+// accumulated: a bucket sums every share of the points.
+//
+// Then the reduction, in shared memory (three 256-entry coordinate
+// arrays, 24 KiB): a Hillis-Steele suffix scan S_b = sum_{j >= b} B_j (8
+// rounds), slot 0 set to the identity, and a halving tree sum of S_1 ..
+// S_255 (8 rounds): sum_{b >= 1} S_b = sum_b b * B_b.  A complete add with
+// the identity on either side is skipped (the other operand is the sum),
+// which saves the sparse rows of a small n most of their adds.  The
+// projective limbs differ from the plain version's (the order of the adds
+// within a bucket follows the atomics of the scatter); the group element,
+// and so the affine point, is the same.
+//
+// Bound by operations: a mixed add for every non-zero digit and the
+// reduction's complete adds, on 128 bytes a point, 4 a digit and 192 a
+// row written.  At the reference's sizes (n < 2048, a few hundred rows)
+// the rows do not fill the card, and the reduction's 16 rounds of 256
+// adds set the time; two blocks a SM overlap two rows' rounds.  Of the
+// three forms measured on an H100 (PERF.md) this one compiles to 128
+// registers and no stack; rebuilding the identity where it is used took
+// 188 (one block a SM), and a bound of two blocks a SM spilled 80 bytes,
+// both slower.  The top window of a 254-bit scalar has 6 bits, so its
+// points crowd 63 buckets: its block makes the most adds a thread.
+constexpr int NB = 256;               // buckets of a window (c = 8)
+constexpr int BUCKET_CHUNK = 2048;    // point indices sorted at a time
+
+__device__ __forceinline__ Pt add_skip_identity(const Pt& p, const Pt& q) {
+  if (fe_is_zero(q.z)) return p;
+  if (fe_is_zero(p.z)) return q;
+  return add_complete(p, q);
+}
+
+__device__ __forceinline__ void put_slot(Fe* sx, Fe* sy, Fe* sz, int b,
+                                         const Pt& p) {
+  sx[b] = p.x;
+  sy[b] = p.y;
+  sz[b] = p.z;
+}
+
+__device__ __forceinline__ Pt get_slot(const Fe* sx, const Fe* sy,
+                                       const Fe* sz, int b) {
+  Pt p;
+  p.x = sx[b];
+  p.y = sy[b];
+  p.z = sz[b];
+  return p;
+}
+
+__global__ void __launch_bounds__(NB) msm_bucket_kernel(
+    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+    const int32_t* __restrict__ digits, int64_t n, int rows,
+    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+    uint32_t* __restrict__ oz) {
+  __shared__ Fe sx[NB], sy[NB], sz[NB];
+  __shared__ int count[NB];
+  __shared__ int fill[NB];
+  __shared__ int list[BUCKET_CHUNK];
+  const int b = threadIdx.x;
+  Pt ident;                                   // the identity (0 : 1 : 0)
+  ident.x = fe_zero();
+  ident.y = one_mont<FQ>();
+  ident.z = fe_zero();
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int32_t* dig = digits + (int64_t)r * n;
+    Pt acc = ident;
+    for (int64_t c0 = 0; c0 < n; c0 += BUCKET_CHUNK) {
+      const int m = (int)min((int64_t)BUCKET_CHUNK, n - c0);
+      count[b] = 0;
+      __syncthreads();
+      for (int t = b; t < m; t += NB) {
+        const int d = dig[c0 + t] & (NB - 1);
+        if (d) atomicAdd(&count[d], 1);
+      }
+      __syncthreads();
+      // inclusive scan of the counts (Hillis-Steele over the 256 slots)
+      const int mine = count[b];
+      fill[b] = mine;
+      __syncthreads();
+      for (int s = 1; s < NB; s <<= 1) {
+        const int v = b >= s ? fill[b - s] : 0;
+        __syncthreads();
+        fill[b] += v;
+        __syncthreads();
+      }
+      const int start = fill[b] - mine;
+      __syncthreads();
+      fill[b] = start;                        // the scatter's cursor
+      __syncthreads();
+      for (int t = b; t < m; t += NB) {
+        const int d = dig[c0 + t] & (NB - 1);
+        if (d) list[atomicAdd(&fill[d], 1)] = (int)(c0 + t);
+      }
+      __syncthreads();
+      for (int j = start; j < start + mine; ++j) {
+        const int64_t i = list[j];
+        acc = add_mixed(acc, load_fe(px, n, i), load_fe(py, n, i));
+      }
+      __syncthreads();                        // before the next chunk
+    }
+    // suffix scan: after the round of shift s, slot b holds the sum of
+    // the buckets b .. b + 2s - 1
+    Pt cur = acc;
+    put_slot(sx, sy, sz, b, cur);
+    __syncthreads();
+    for (int s = 1; s < NB; s <<= 1) {
+      const bool has = b + s < NB;
+      Pt other = ident;
+      if (has) other = get_slot(sx, sy, sz, b + s);
+      __syncthreads();
+      if (has) {
+        cur = add_skip_identity(cur, other);
+        put_slot(sx, sy, sz, b, cur);
+      }
+      __syncthreads();
+    }
+    // drop S_0 (the discard bucket's suffix), then the tree sum
+    if (b == 0) {
+      cur = ident;
+      put_slot(sx, sy, sz, 0, cur);
+    }
+    __syncthreads();
+    for (int h = NB / 2; h >= 1; h >>= 1) {
+      if (b < h) {
+        cur = add_skip_identity(cur, get_slot(sx, sy, sz, b + h));
+        put_slot(sx, sy, sz, b, cur);
+      }
+      __syncthreads();
+    }
+    if (b == 0) store_pt(ox, oy, oz, rows, r, cur);
+    __syncthreads();                          // the slots of the next row
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Resident blocks of THREADS threads a multiprocessor can hold for kernel
-// `which` (0 add, 1 add_mixed, 2 double, 3 add_mixed_packed, 4 horner,
-// 5 ladder, 6 msm_scan, 7 fixed_base), from the CUDA occupancy calculator.
+// Resident blocks a multiprocessor can hold for kernel `which` (0 add,
+// 1 add_mixed, 2 double, 3 add_mixed_packed, 4 horner, 5 ladder,
+// 6 msm_scan, 7 fixed_base: blocks of THREADS threads; 8 msm_bucket: of
+// NB), from the CUDA occupancy calculator.
 int h2_point_occupancy(int which, int* blocks) {
   const void* fns[] = {(const void*)point_add_kernel,
                        (const void*)point_add_mixed_kernel,
@@ -447,10 +598,11 @@ int h2_point_occupancy(int which, int* blocks) {
                        (const void*)point_horner_kernel,
                        (const void*)point_ladder_kernel,
                        (const void*)msm_scan_kernel,
-                       (const void*)fixed_base_kernel};
-  if (which < 0 || which >= 8) return (int)cudaErrorInvalidValue;
+                       (const void*)fixed_base_kernel,
+                       (const void*)msm_bucket_kernel};
+  if (which < 0 || which >= 9) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fns[which], THREADS, 0);
+      blocks, fns[which], which == 8 ? NB : THREADS, 0);
 }
 
 int h2_point_add(const void* px, const void* py, const void* pz,
@@ -547,6 +699,20 @@ int h2_fixed_base(const void* tab, const void* s, long long s_ls,
   fixed_base_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       (const uint4*)tab, (const uint32_t*)s, s_ls, s_es, (uint32_t*)ox,
       (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// px, py (16, n) affine limbs; digits (rows, n) int32 in [0, 256);
+// outputs (16, rows) x 3, the rows' totals
+int h2_msm_bucket(const void* px, const void* py, const void* digits,
+                  long long n, int rows, void* ox, void* oy, void* oz,
+                  void* stream) {
+  if (rows <= 0) return 0;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int grid = rows < MAX_BLOCKS ? rows : MAX_BLOCKS;
+  msm_bucket_kernel<<<grid, NB, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)digits, n,
+      rows, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz);
   return (int)cudaGetLastError();
 }
 

@@ -26,10 +26,16 @@ JAX package compiles it into one `lax.scan`:
   fixed_base_mul  `g1.fixed_base_mul`: k * G for the generator G by a comb
                of 32 windows of 8 bits over a table of 8,160 points (the
                SRS setup's point multiplications)
+  msm_bucket   the MSM's bucket path below 2048 points (msm/msm.py): the
+               buckets of 8-bit digits and their reduction to each
+               window's total, where the JAX package runs a `lax.scan` of
+               lane-private bucket adds and log-depth reductions
 
 Their plain versions are `plain_msm_scan` (the steps as a loop of
-`plain_add_mixed_packed`) and the composed loops `g1.plain_horner`,
-`g1.plain_scalar_mul` and `g1.plain_fixed_base_mul`, on `plain_point`.
+`plain_add_mixed_packed`), `plain_msm_bucket` (the JAX package's
+lane-private buckets, lane merge and suffix-scan reduction) and the
+composed loops `g1.plain_horner`, `g1.plain_scalar_mul` and
+`g1.plain_fixed_base_mul`, on `plain_point`.
 
 What bounds them on an H100: an add is 12 Montgomery products of 264
 integer multiply-adds and some 29 additions on 576 bytes (six coordinates
@@ -71,7 +77,10 @@ LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 
 launch_counts = {"point_op": 0, "add_mixed_packed": 0, "msm_scan": 0,
-                 "horner": 0, "ladder": 0, "fixed_base": 0}
+                 "horner": 0, "ladder": 0, "fixed_base": 0, "msm_bucket": 0}
+
+# buckets of a window of the bucket path (8-bit digits)
+BUCKETS = 256
 
 _N_IN = {"add": 6, "add_mixed": 5, "double": 3}
 
@@ -247,6 +256,63 @@ def plain_msm_scan(rows, order, key, block: int, nb: int):
     return totals, table, blk
 
 
+def _plain_identity(F, shape):
+    zero = F.zeros(shape)
+    return (zero, F.ones(shape), zero.clone())
+
+
+def _plain_sum_last(pts):
+    """Sum points along the last axis by a halving tree of plain adds (an
+    odd length keeps its last point for the next level)."""
+    L = pts[0].shape[-1]
+    while L > 1:
+        h = L // 2
+        s = plain_point("add", tuple(c[..., :h] for c in pts),
+                        tuple(c[..., h:2 * h] for c in pts))
+        pts = tuple(torch.cat([a, c[..., 2 * h:]], dim=-1)
+                    for a, c in zip(s, pts))
+        L = pts[0].shape[-1]
+    return tuple(c[..., 0] for c in pts)
+
+
+def plain_msm_bucket(px, py, digits, lanes: int):
+    """`msm_bucket`'s plain version, the JAX package's algorithm
+    (halo2_tpu/msm/msm.py `_accumulate`, `_merge_lanes`,
+    `_reduce_buckets`): point i goes to lane i % lanes, every (row, lane)
+    owns a column of 256 buckets, and the n / lanes steps each add one
+    point a lane into the bucket of its digit (bucket 0 included); then
+    the lanes are merged by a tree of adds, and each row's buckets are
+    reduced by a Hillis-Steele suffix scan S_b = sum_{j >= b} B_j and a
+    tree sum of S_1 .. S_255.  Returns 3 coordinates of (16, rows)."""
+    R, n = digits.shape
+    L = lanes
+    F = fq(px.device)
+    buckets = _plain_identity(F, (R, BUCKETS, L))
+    r_idx = torch.arange(R, device=px.device)[:, None]
+    l_idx = torch.arange(L, device=px.device)[None, :]
+    pxr = px.reshape(N_LIMBS, n // L, L)
+    pyr = py.reshape(N_LIMBS, n // L, L)
+    dr = digits.to(torch.int64).reshape(R, n // L, L)
+    for s in range(n // L):
+        d = dr[:, s, :]                                   # (R, L)
+        cur = tuple(c[:, r_idx, d, l_idx] for c in buckets)
+        aff = tuple(c[:, s, :][:, None, :].expand(N_LIMBS, R, L)
+                    for c in (pxr, pyr))
+        new = plain_point("add_mixed", cur, aff)
+        for c, v in zip(buckets, new):
+            c[:, r_idx, d, l_idx] = v
+    merged = _plain_sum_last(buckets)                     # (16, R, 256)
+    s = 1
+    while s < BUCKETS:
+        shifted = tuple(torch.cat([c[..., s:], ic], dim=-1) for c, ic
+                        in zip(merged, _plain_identity(F, (R, s))))
+        merged = plain_point("add", merged, shifted)
+        s *= 2
+    merged = tuple(torch.cat([ic, c[..., 1:]], dim=-1) for c, ic
+                   in zip(merged, _plain_identity(F, (R, 1))))
+    return _plain_sum_last(merged)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -265,11 +331,12 @@ def typed(lib):
                                     ll, vp]
     lib.h2_msm_scan.argtypes = [vp] * 3 + [ll] + [ci] * 3 + [vp] * 8
     lib.h2_fixed_base.argtypes = [vp, vp, ll, ll, vp, vp, vp, ll, vp]
+    lib.h2_msm_bucket.argtypes = [vp, vp, vp, ll, ci, vp, vp, vp, vp]
     lib.h2_point_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
     for fn in (lib.h2_point_add, lib.h2_point_add_mixed, lib.h2_point_double,
                lib.h2_add_mixed_packed, lib.h2_point_horner,
                lib.h2_point_ladder, lib.h2_msm_scan, lib.h2_fixed_base,
-               lib.h2_point_occupancy):
+               lib.h2_msm_bucket, lib.h2_point_occupancy):
         fn.restype = ci
     return lib
 
@@ -280,13 +347,14 @@ def _lib():
 
 
 OCCUPANCY_KERNELS = ("add", "add_mixed", "double", "add_mixed_packed",
-                     "horner", "ladder", "msm_scan", "fixed_base")
+                     "horner", "ladder", "msm_scan", "fixed_base",
+                     "msm_bucket")
 
 
 def occupancy(lib=None) -> dict:
-    """Resident 128-thread blocks a multiprocessor holds, per point kernel
-    of `lib` (default: the package's build), from the CUDA occupancy
-    calculator."""
+    """Resident blocks a multiprocessor holds, per point kernel of `lib`
+    (default: the package's build), from the CUDA occupancy calculator:
+    blocks of 128 threads, and of 256 for msm_bucket."""
     lib = lib or _lib()
     out = {}
     for which, name in enumerate(OCCUPANCY_KERNELS):
@@ -537,4 +605,49 @@ def fixed_base_mul(rows: torch.Tensor, scalars_std: torch.Tensor):
                      s2.data_ptr(), *s2.stride(),
                      *[o.data_ptr() for o in out], n)
         launch_counts["fixed_base"] += 1
+    return out
+
+
+def msm_bucket(px: torch.Tensor, py: torch.Tensor, digits: torch.Tensor,
+               lanes: int = 1):
+    """Each row's bucket total, one launch for CUDA tensors: for every row
+    r of `digits`, sum_i digits[r, i] * P_i.
+
+    px, py: (16, n) affine Montgomery limbs, no point the identity;
+    digits: (rows, n) int32 in [0, 256), digit 0 the discarded bucket;
+    n a multiple of `lanes`.  Returns projective (X, Y, Z), each (16,
+    rows).  `lanes` is the plain version's count of lane-private bucket
+    columns (the JAX package's layout); the kernel sorts a row's points
+    by digit in one block whatever `lanes` is, so the two give the same
+    group element and differ in projective limbs.  The plain version is
+    `plain_msm_bucket`."""
+    device = px.device
+    if px.dim() != 2 or px.shape[0] != N_LIMBS:
+        raise ValueError(f"msm_bucket: expected (16, n) limbs, got "
+                         f"{tuple(px.shape)}")
+    n = px.shape[1]
+    if digits.dim() != 2 or digits.shape[1] != n:
+        raise ValueError(f"msm_bucket: digits must be (rows, {n}), got "
+                         f"{tuple(digits.shape)}")
+    if lanes < 1 or n < 1 or n % lanes:
+        raise ValueError(f"msm_bucket: n = {n} is no multiple of lanes = "
+                         f"{lanes}")
+    _check("msm_bucket px", px, (N_LIMBS, n), device)
+    _check("msm_bucket py", py, (N_LIMBS, n), device)
+    _check("msm_bucket digits", digits, digits.shape, device)
+    if device.type == "cpu":
+        return plain_msm_bucket(px, py, digits, lanes)
+    if device.type != "cuda":
+        raise ValueError(f"msm_bucket: unsupported device {device}")
+    if n >= 1 << 31:
+        raise ValueError("msm_bucket: n must be below 2^31")
+    px, py, digits = px.contiguous(), py.contiguous(), digits.contiguous()
+    rows = digits.shape[0]
+    out = tuple(torch.empty((N_LIMBS, rows), dtype=torch.int32,
+                            device=device) for _ in range(3))
+    if rows:
+        build.launch(device, _lib().h2_msm_bucket, px.data_ptr(),
+                     py.data_ptr(), digits.data_ptr(), n, rows,
+                     *[o.data_ptr() for o in out])
+        launch_counts["msm_bucket"] += 1
     return out

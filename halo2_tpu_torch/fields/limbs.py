@@ -135,6 +135,7 @@ class Field:
         self.r2_np = int_to_limbs_np(self.R2)
         self.one = to_tensor(self.r_np, self.device)   # (16,)
         self.r2 = to_tensor(self.r2_np, self.device)
+        self.one_std = to_tensor(int_to_limbs_np(1), self.device)
 
     # -- host helpers -----------------------------------------------------
     def to_mont_int(self, x: int) -> int:
@@ -243,9 +244,7 @@ class Field:
 
     def from_mont(self, a_mont):
         """Montgomery form -> standard-form limbs (canonical, < p)."""
-        one_std = torch.zeros(N_LIMBS, dtype=DTYPE, device=a_mont.device)
-        one_std[0] = 1
-        return self.mul(a_mont, one_std)
+        return self.mul(a_mont, self.one_std.to(a_mont.device))
 
     def pow_static(self, a, e: int):
         """a**e for a Python-int exponent: one kernel launch for a CUDA

@@ -15,6 +15,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from halo2_tpu_torch.curves import cuda_point, g1
@@ -27,10 +29,12 @@ from halo2_tpu_torch.utils import profiling
 # the sign rides on the point's y).
 SIGNED_C_BITS = 11
 
-# device memory the scan of one window group may take, and what a group
-# holds a point and window at its peak (the sort key, its sorted copy and
-# the int64 order, the sort's scratch): 61.7 bytes at 2^18 points and 30.2
-# at 2^20 in groups of 24 windows on an H100 (examples/torch_msm_memory.py)
+# device memory the scan of one window group may take (the environment's
+# HALO2_TPU_MSM_MEM, in bytes, overrides it, as in the JAX package), and
+# what a group holds a point and window at its peak (the sort key, its
+# sorted copy and the int64 order, the sort's scratch): 61.7 bytes at 2^18
+# points and 30.2 at 2^20 in groups of 24 windows on an H100
+# (examples/torch_msm_memory.py)
 GROUP_MEM_BUDGET = 3 << 30
 GROUP_BYTES_PER_POINT_WINDOW = 64
 
@@ -239,8 +243,9 @@ def auto_group(n: int, num_windows: int) -> int:
     step, ladder level, Abel fold) then runs at num_windows * block points
     a launch, and the round count stops scaling with the window count.  The
     cap is device memory, so the group shrinks for very large n."""
+    budget = int(os.environ.get("HALO2_TPU_MSM_MEM", GROUP_MEM_BUDGET))
     per_window = GROUP_BYTES_PER_POINT_WINDOW * max(n, 1)
-    g_max = max(1, min(num_windows, GROUP_MEM_BUDGET // per_window))
+    g_max = max(1, min(num_windows, budget // per_window))
     if g_max >= num_windows:
         return num_windows
     # least padding waste among feasible sizes (padded windows are dead work)

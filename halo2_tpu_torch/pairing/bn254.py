@@ -18,6 +18,10 @@ construction (public domain knowledge), reimplemented here.
 
 from __future__ import annotations
 
+import hashlib
+import io
+import os
+import pickle
 
 from halo2_tpu_torch.fields.bn254 import FQ_MODULUS, FR_MODULUS
 
@@ -500,17 +504,100 @@ class G2Prepared:
 
 _PREPARED_CACHE: dict = {}
 
+# Disk cache for prepared lines: the ~100 Miller-loop steps each pay an
+# Fq12 inversion in _line_coeffs (some 0.5 s a G2 point), and the
+# verifier's G2 points (g2, s_g2) are fixed per SRS, so the first verify in
+# a fresh process can load the lines instead of computing them.  Keyed by a
+# hash of the G2 point's coordinates.  HALO2_TPU_G2_CACHE=<dir> relocates
+# it, =0 or =off disables it.  The key hash and the file's contents are
+# the JAX package's (halo2_tpu/pairing/bn254.py), so either package loads
+# the other's files.
+_G2_CACHE_DIR = os.environ.get(
+    "HALO2_TPU_G2_CACHE",
+    os.path.join(os.path.expanduser("~"), ".cache", "halo2_tpu_torch",
+                 "g2_lines"))
+
+
+def _disk_path(key):
+    if _G2_CACHE_DIR in ("0", "off", ""):
+        return None
+    h = hashlib.blake2b(repr(key).encode(), digest_size=16).hexdigest()
+    return os.path.join(_G2_CACHE_DIR, h + ".lines")
+
+
+def _steps_to_wire(steps):
+    return [(tag, None if m is None else m.coeffs, c.coeffs, has_y)
+            for tag, m, c, has_y in steps]
+
+
+def _fq12_from_wire(coeffs) -> FQ12:
+    if (not isinstance(coeffs, tuple) or len(coeffs) != 12
+            or not all(type(x) is int for x in coeffs)):
+        raise ValueError("a line coefficient is not 12 integers")
+    return FQ12(coeffs)
+
+
+def _steps_from_wire(wire):
+    if not isinstance(wire, list):
+        raise ValueError("the lines are not a list of steps")
+    steps = []
+    for step in wire:
+        if (not isinstance(step, tuple) or len(step) != 4
+                or step[0] not in ("a", "d") or type(step[3]) is not bool):
+            raise ValueError("a step is not (tag, m, c, has_y)")
+        tag, m, c, has_y = step
+        steps.append((tag, None if m is None else _fq12_from_wire(m),
+                      _fq12_from_wire(c), has_y))
+    return steps
+
+
+class _LinesUnpickler(pickle.Unpickler):
+    """Loads plain containers, strings and integers only: a lines file
+    names no class."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(f"a lines file names {module}.{name}")
+
+
+def _read_lines(path):
+    with open(path, "rb") as fh:
+        return _steps_from_wire(_LinesUnpickler(io.BytesIO(fh.read()))
+                                .load())
+
+
+def _write_lines(path, steps):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + f".tmp.{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        pickle.dump(_steps_to_wire(steps), fh,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
 
 def prepare_g2(q_g2) -> G2Prepared:
-    """Cached G2Prepared — the verifier's G2 points are fixed per SRS, so
-    the lines (plain ints inside FQ12 values) are computed once per process
-    and kept in memory."""
+    """Cached G2Prepared — the verifier's G2 points are fixed per SRS.
+    Memory cache first, then the on-disk line cache, then compute and
+    store (a file that cannot be read is computed and written again)."""
     key = (q_g2[0].coeffs, q_g2[1].coeffs)
     prep = _PREPARED_CACHE.get(key)
+    if prep is not None:
+        return prep
+    path = _disk_path(key)
+    if path is not None and os.path.exists(path):
+        try:
+            prep = G2Prepared.__new__(G2Prepared)
+            prep.steps = _read_lines(path)
+        except (OSError, EOFError, ValueError, pickle.UnpicklingError):
+            prep = None
     if prep is None:
         prep = G2Prepared(q_g2)
-        if len(_PREPARED_CACHE) < 16:
-            _PREPARED_CACHE[key] = prep
+        if path is not None:
+            try:
+                _write_lines(path, prep.steps)
+            except OSError:
+                pass                      # a cache that cannot be written
+    if len(_PREPARED_CACHE) < 16:
+        _PREPARED_CACHE[key] = prep
     return prep
 
 

@@ -259,7 +259,7 @@ def keygen(params, circuit, floor_planner=None, device="cuda", phases=None):
     if params.device != device:
         raise ValueError(f"params are on {params.device}, keygen was asked "
                          f"for {device}")
-    _pm = profiling.phase_marker(device, phases)
+    _pm = profiling.phase_marker(device, phases, scope="keygen")
     cs = ConstraintSystem()
     config = circuit.configure(cs)
     # chunk lookups and shuffles by degree (circuit_configure,

@@ -13,6 +13,8 @@ Mirrors halo2_proofs/src/plonk/logup/prover.rs:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -22,6 +24,9 @@ from halo2_tpu_torch.plonk.expr_eval import ExprCtx, compress_exprs
 from halo2_tpu_torch.poly.arith import prefix_sum
 
 P = FR_MODULUS
+# the reference's `sanity-checks` feature: the grand sum's closure is read
+# back and checked (one scalar from the device a lookup)
+_SANITY = os.environ.get("HALO2_TPU_SANITY_CHECKS", "") == "1"
 
 
 def compress(argument, lag_ctx: ExprCtx, theta):
@@ -143,4 +148,10 @@ def commit_zs(domain, cs, table, input_sets, m_lagrange, beta: int, rng):
         last_z = z[:, u].clone()
         z[:, n - bf:] = F.encode([rng.randrange(P) for _ in range(bf)])
         zs.append(z)
+    if _SANITY:
+        # the grand sum must telescope to zero across all sets
+        # (logup/prover.rs:348-412 sanity-checks feature)
+        final = F.decode_scalar(last_z)
+        if final != 0:
+            raise AssertionError(f"logup grand sum != 0: {final}")
     return zs

@@ -15,6 +15,7 @@ for bn256 Fr (used for the distinct-coset shifts delta^j).
 
 from __future__ import annotations
 
+import os
 import random
 from dataclasses import dataclass
 
@@ -29,6 +30,9 @@ from halo2_tpu_torch.poly.arith import PointPowers, eval_poly
 
 P = FR_MODULUS
 DELTA = pow(FR_GENERATOR, 1 << FR_S, P)
+# the reference's `sanity-checks` feature: the grand product's closure is
+# read back and checked (one scalar from the device a proof)
+_SANITY = os.environ.get("HALO2_TPU_SANITY_CHECKS", "") == "1"
 
 
 class Assembly:
@@ -196,6 +200,11 @@ def commit_z_polys(params, domain, cs, pkey: PermutationPk, value_cols,
         z[:, n - bf:] = F.encode(blinds)
         last_z = z[:, n - (bf + 1)].clone()
         zs.append(z)
+    if _SANITY:
+        # the chained grand product must close to 1
+        final = F.decode_scalar(last_z)
+        if final != 1:
+            raise AssertionError(f"permutation grand product != 1: {final}")
     return zs, params.commit_many_affine(zs, base="lagrange")
 
 

@@ -7,12 +7,17 @@ of the shuffle-side product and a prefix-product scan.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from halo2_tpu_torch.fields.bn254 import FR_MODULUS
 from halo2_tpu_torch.plonk.expr_eval import ExprCtx, compress_exprs
 
 P = FR_MODULUS
+# the reference's `sanity-checks` feature: the grand product's closure is
+# read back and checked (one scalar from the device a shuffle group)
+_SANITY = os.environ.get("HALO2_TPU_SANITY_CHECKS", "") == "1"
 
 
 def compress(group, lag_ctx: ExprCtx, theta):
@@ -52,5 +57,11 @@ def commit_product(domain, cs, input_cols, shuffle_cols, beta: int, rng):
     bf = cs.blinding_factors()
     ratio = product_ratio(F, input_cols, shuffle_cols, F.encode_scalar(beta))
     z = z_from_ratio(F, ratio)
+    if _SANITY:
+        # the grand product must close to 1 at the last active row
+        # (shuffle/prover.rs:159-194 sanity-checks feature)
+        zu = F.decode_scalar(z[:, n - (bf + 1)])
+        if zu != 1:
+            raise AssertionError(f"shuffle grand product != 1: {zu}")
     z[:, n - bf:] = F.encode([rng.randrange(P) for _ in range(bf)])
     return z

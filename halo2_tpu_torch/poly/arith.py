@@ -124,10 +124,13 @@ def eval_poly_batch(coeff_list, z: int) -> list:
     n = coeff_list[0].shape[-1]
     device = coeff_list[0].device
     profiling.incr("eval_batches")
-    stack = torch.stack(list(coeff_list), dim=1)       # (16, C, n)
-    powers = PointPowers.get(z, n, device)
-    out = _dot(stack, powers[:, None, :])              # (16, C)
-    return fr(device).decode(out)
+    with profiling.span(f"eval_batch[{len(coeff_list)}x2^{n.bit_length()-1}]"):
+        stack = torch.stack(list(coeff_list), dim=1)   # (16, C, n)
+        with profiling.span("powers"):
+            powers = PointPowers.get(z, n, device)
+        out = _dot(stack, powers[:, None, :])          # (16, C)
+        with profiling.span("decode"):
+            return fr(device).decode(out)
 
 
 def kate_division(p, b: int):

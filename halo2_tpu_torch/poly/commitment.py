@@ -183,7 +183,8 @@ class Params:
         `phases` (utils/profiling.PhaseTimes) it marks `scalars` (powers
         of s and Lagrange values), `g`, `g_lagrange` and `s_g2`."""
         device = require_device(device)
-        mark = profiling.phase_marker(device, phases)
+        mark = profiling.phase_marker(device, phases,
+                                       scope="unsafe_setup")
         rng = random.Random(seed)
         s = rng.randrange(1, R)
         powers, lag = setup_scalars(k, s, device)

@@ -1,8 +1,20 @@
-"""Phase timers and counters for the prover, and the measures of a kernel.
+"""Phase timers, the span profiler and counters for the prover, and the
+measures of a kernel.
 
 `PhaseTimes` records the seconds between successive marks; on a CUDA
 device it waits for the device at every mark, so a phase is charged the
 work it enqueued.  `counters` is a small registry (MSM / NTT call counts).
+
+The span profiler is the JAX package's (halo2_tpu/utils/profiling.py, the
+reference's `profile` feature): `span(name)` scopes and `phase_marker`'s
+marks, when HALO2_TPU_PROFILE=1 (or `enable()`), print one stderr line
+each and accumulate into a tree that `report()` prints with totals, counts
+and shares.  With HALO2_TPU_PROFILE_SYNC=1 (or `enable(sync=True)`) every
+span exit and mark first waits for the card (`torch.cuda.synchronize`),
+so a scope is charged its device time, not its enqueue time; that
+serialises the host with the card, so it is for attribution, not for
+end-to-end times.
+
 `time_cuda`, `time_graph`, `bound_ms` and `max_abs_err` are what
 chip_smoke.py and the examples report for a kernel: its time on the card
 (launched from Python, and replayed from a CUDA graph with no host in the
@@ -13,12 +25,56 @@ against a plain version.
 from __future__ import annotations
 
 import functools
+import os
 import subprocess
+import sys
 import time
+from contextlib import contextmanager
 
 import torch
 
 counters: dict = {}
+
+_enabled = os.environ.get("HALO2_TPU_PROFILE", "") == "1"
+_sync = os.environ.get("HALO2_TPU_PROFILE_SYNC", "") == "1"
+
+
+class _Node:
+    __slots__ = ("name", "total", "count", "children")
+
+    def __init__(self, name):
+        self.name = name
+        self.total = 0.0
+        self.count = 0
+        self.children: dict[str, _Node] = {}
+
+    def child(self, name):
+        node = self.children.get(name)
+        if node is None:
+            node = self.children[name] = _Node(name)
+        return node
+
+
+_root = _Node("total")
+_stack = [_root]
+
+
+def enable(on: bool = True, sync: bool | None = None):
+    """Turn the span profiler on or off (and its sync with the card)."""
+    global _enabled, _sync
+    _enabled = on
+    if sync is not None:
+        _sync = sync
+
+
+def _drain_device(device=None):
+    """Wait for the card's queue (the current device's, or `device`'s);
+    nothing to wait for on the CPU."""
+    if device is not None and torch.device(device).type != "cuda":
+        return
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize(device)
+
 
 # Peaks of one H100 SXM at its full power limit (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -49,7 +105,57 @@ def incr(name: str, v: float = 1):
     counters[name] = counters.get(name, 0) + v
 
 
+@contextmanager
+def span(name: str):
+    """A nested scope of the profiler's tree (nothing when it is off)."""
+    if not _enabled:
+        yield
+        return
+    node = _stack[-1].child(name)
+    _stack.append(node)
+    if _sync:
+        _drain_device()
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        if _sync:
+            _drain_device()
+        dt = time.time() - t0
+        node.total += dt
+        node.count += 1
+        _stack.pop()
+        print(f"[halo2_tpu]{'·' * (len(_stack) - 1)} {name}: {dt*1000:.1f} ms",
+              file=sys.stderr, flush=True)
+
+
+def report(file=None) -> str:
+    """Render the accumulated timer tree and counters (and print them)."""
+    out = []
+
+    def walk(node, depth, parent_total):
+        pct = (f" ({100 * node.total / parent_total:.0f}%)"
+               if parent_total else "")
+        out.append(f"{'  ' * depth}{node.name}: {node.total*1000:.1f} ms"
+                   f" x{node.count}{pct}")
+        for ch in node.children.values():
+            walk(ch, depth + 1, node.total)
+
+    for ch in _root.children.values():
+        walk(ch, 0, 0.0)
+    if counters:
+        out.append("counters: " + ", ".join(
+            f"{k}={v:g}" for k, v in sorted(counters.items())))
+    text = "\n".join(out)
+    print(text, file=file or sys.stderr, flush=True)
+    return text
+
+
 def reset():
+    """Clear the counters and the profiler's tree."""
+    global _root, _stack
+    _root = _Node("total")
+    _stack = [_root]
     counters.clear()
 
 
@@ -86,12 +192,35 @@ class PhaseTimes:
         self._t = now
 
 
-def phase_marker(device, phases: PhaseTimes | None = None):
-    """The caller's PhaseTimes, or a do-nothing marker when none is given."""
+def phase_marker(device, phases: PhaseTimes | None = None,
+                 scope: str = "prover"):
+    """The caller's PhaseTimes, or a do-nothing marker when none is given;
+    while the profiler is on, a marker that also records each mark's
+    seconds into the tree under `scope` and prints them (its time taken
+    after a wait for `device` when the profiler syncs)."""
     if phases is not None:
         phases._t = phases._now()
-        return phases
-    return lambda name: None
+    if not _enabled:
+        return phases if phases is not None else (lambda name: None)
+    parent = _stack[-1].child(scope)
+    state = {"t": time.time()}
+
+    def mark(name: str):
+        if phases is not None:
+            phases(name)
+        if _sync:
+            _drain_device(device)
+        now = time.time()
+        dt = now - state["t"]
+        node = parent.child(name)
+        node.total += dt
+        node.count += 1
+        parent.total += dt
+        print(f"[halo2_tpu] {name}: {dt*1000:.1f} ms", file=sys.stderr,
+              flush=True)
+        state["t"] = now
+
+    return mark
 
 
 def time_cuda(fn, reps: int) -> float:

@@ -3,6 +3,7 @@ nor the port's examples, imports jax or anything of halo2_tpu; and the entry poi
 not carry on on the CPU — when no device is passed and there is no card.
 """
 
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -35,7 +36,9 @@ SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
            "examples.torch_kernel_audit", "examples.torch_launch_cost",
            "examples.torch_probe_k22", "examples.torch_bench_prover",
            "examples.torch_bench_keygen", "examples.torch_chain_probe",
-           "examples.torch_setup_probe"]
+           "examples.torch_setup_probe", "examples.torch_simple_example",
+           "examples.torch_range_check_example",
+           "examples.torch_profile_msm"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys
@@ -73,6 +76,34 @@ def test_package_has_its_modules():
                  "halo2_tpu_torch.dev.graph",
                  "halo2_tpu_torch.utils.offload"):
         assert name in MODULES
+
+
+def test_package_has_its_names():
+    """The JAX package's surface that the port carries: the MSM's bucket
+    path and its API, the span profiler, the sanity checks' switches and
+    the G2 line cache."""
+    from halo2_tpu_torch.curves import cuda_point
+    from halo2_tpu_torch.msm import msm
+    from halo2_tpu_torch.pairing import bn254
+    from halo2_tpu_torch.plonk import logup_prover, permutation
+    from halo2_tpu_torch.plonk import shuffle_prover
+    from halo2_tpu_torch.utils import profiling
+    for mod, names in (
+            (cuda_point, ("msm_bucket", "plain_msm_bucket", "BUCKETS")),
+            (msm, ("msm", "msm_many", "msm_host_result", "C_BITS",
+                   "_digits", "_pick_lanes", "SORT_BLOCK")),
+            (profiling, ("span", "enable", "report", "reset",
+                         "phase_marker", "_Node")),
+            (bn254, ("prepare_g2", "_disk_path", "_steps_to_wire",
+                     "_steps_from_wire", "_G2_CACHE_DIR")),
+            (permutation, ("_SANITY",)), (logup_prover, ("_SANITY",)),
+            (shuffle_prover, ("_SANITY",))):
+        for name in names:
+            assert hasattr(mod, name), (mod.__name__, name)
+    assert cuda_point.launch_counts["msm_bucket"] >= 0
+    params = inspect.signature(msm.msm).parameters
+    assert list(params) == ["points", "scalars_mont", "max_bits", "lanes",
+                            "force_scatter"]
 
 
 def test_every_module_imports_without_jax_or_halo2_tpu():
