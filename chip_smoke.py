@@ -26,8 +26,12 @@ halo2_tpu_torch/native, then:
            them; the small MSM's bucket kernel (`msm_bucket`) against its
            plain lane-private buckets exactly after to_affine, at n = 1,
            7, 16, 32, 512 and 2047, full and 16-bit scalars, 1, 4 and 64
-           lanes, timed at the golden proofs' shapes, and msm_many's
-           bucket path against its sorted path;
+           lanes, and at 2047 with canonical scalars (the top window's
+           buckets crowded), timed at the golden proofs' shapes and at
+           2047 with both scalars, the kernel's own count of its adds
+           (`kernel_adds`) printed beside the function's
+           (`complete_adds`, which sets the bound), and msm_many's bucket
+           path against its sorted path;
   golden   with the sanity checks (HALO2_TPU_SANITY_CHECKS) and the span
            profiler (synchronising) on, and the launch counts set to 0
            just before and read just after (every MSM there is below 2048
@@ -1119,21 +1123,32 @@ BUCKET_LANES = (1, 4, 64)
 # (AllArgsCircuit, tests/data/torch_golden_args.json)
 GOLDEN_ARGS_K = 9
 # the bucket kernel's timed shapes: (label, n, columns or None for the
-# golden AllArgs proof's widest commitment batch): that batch (n = 512,
-# its columns' full windows in one launch), the K = 4 proof's single
-# column, and the largest n below SORT_BLOCK
-BUCKET_TIMED = ((f"golden K = {GOLDEN_ARGS_K}", 512, None),
-                ("golden K = 4", 16, 1), ("largest n", SORT_BLOCK - 1, 1))
+# golden AllArgs proof's widest commitment batch, scalars): that batch (n =
+# 512, its columns' full windows in one launch), the K = 4 proof's single
+# column, and the largest n below SORT_BLOCK, with 254-bit scalars (the top
+# byte up to 0x3F) and with canonical ones (below r, the top byte up to
+# 0x30, as a commitment's values are: the top window's buckets crowd)
+BUCKET_TIMED = ((f"golden K = {GOLDEN_ARGS_K}", 512, None, 254),
+                ("golden K = 4", 16, 1, 254),
+                ("largest n", SORT_BLOCK - 1, 1, 254),
+                ("largest n, canonical scalars", SORT_BLOCK - 1, 1,
+                 "canonical"))
 # the points of msm_many's bucket path held to its sorted path
 BUCKET_MANY_N = 512
 
 
 def _bucket_inputs(n, bits, lanes, gen, device, pts):
     """The bucket path's kernel inputs for n points and scalars below
-    2^bits: the points padded to a multiple of `lanes` with copies of the
-    first under zero digits (as msm/msm.py pads them), and the 8-bit
-    digits of random standard-form scalars, 0, 1 and 255 among the first."""
+    2^bits (or below r, uniform below its top limb, where bits is
+    "canonical"): the points padded to a multiple of `lanes` with copies
+    of the first under zero digits (as msm/msm.py pads them), and the
+    8-bit digits of random standard-form scalars, 0, 1 and 255 among the
+    first."""
     s = _rand_scalars(n, gen, device)
+    if bits == "canonical":
+        s[N_LIMBS - 1] = torch.randint(0, P >> 240, (n,), dtype=torch.int32,
+                                       device=device, generator=gen)
+        bits = 254
     s[-(-bits // 16):] = 0                   # the limbs at and above 2^bits
     if n >= 3:
         s[:, :3] = 0
@@ -1162,11 +1177,19 @@ def _bucket_work(digits) -> tuple:
 
 
 def _bucket_bounds(n, digits) -> dict:
+    """The function's bound (`_bucket_work`), with the kernel's own count
+    of its operations beside it (`kernel_*`, cuda_point.msm_bucket_ops)."""
     mixed, full = _bucket_work(digits)
     am, aa = POINT_OPS["add_mixed"]
     cm, ca = POINT_OPS["add"]
     R = digits.shape[0]
-    return {"mixed_adds": mixed, "complete_adds": full,
+    threads = cuda_point.bucket_threads(R, torch.cuda.get_device_properties(
+        digits.device).multi_processor_count)
+    own = cuda_point.msm_bucket_ops(digits, threads)
+    return {"mixed_adds": mixed, "complete_adds": full, "threads": threads,
+            "kernel_mixed_adds": own["mixed_adds"],
+            "kernel_adds": own["complete_adds"],
+            "kernel_doublings": own["doublings"],
             **_bounds(2 * N_LIMBS * WORD * n + WORD * R * n
                       + 3 * N_LIMBS * WORD * R,
                       am * mixed + cm * full, aa * mixed + ca * full)}
@@ -1180,8 +1203,9 @@ def _msm_bucket(gen, device, ptxas) -> dict:
     """The bucket path's kernel: one launch, against the plain lane-private
     buckets, exactly after to_affine (the two add in other orders, so their
     projective limbs differ), at every n of BUCKET_NS with full and 16-bit
-    scalars and every lane count of BUCKET_LANES; timed at the golden
-    proofs' shapes; and msm_many's bucket path against its sorted path."""
+    scalars and every lane count of BUCKET_LANES, and at the largest n
+    with canonical scalars; timed at the golden proofs' shapes and the
+    largest n; and msm_many's bucket path against its sorted path."""
     n_max = max(BUCKET_NS + (BUCKET_MANY_N,))
     aff, _ = _rand_points(n_max, gen, device)
     cases = []
@@ -1204,10 +1228,10 @@ def _msm_bucket(gen, device, ptxas) -> dict:
                              "identity")
     C = _shapes(GOLDEN_ARGS_K, "golden", AllArgsCircuit())["horner_lanes"]
     variants = []
-    for label, n, cols in BUCKET_TIMED:
+    for label, n, cols, bits in BUCKET_TIMED:
         cols = cols or C
         lanes = msm._pick_lanes(n)
-        parts = [_bucket_inputs(n, 254, lanes, gen, device, aff)
+        parts = [_bucket_inputs(n, bits, lanes, gen, device, aff)
                  for _ in range(cols)]
         px, py = parts[0][0], parts[0][1]
         d = torch.cat([p[2] for p in parts])
@@ -1222,6 +1246,17 @@ def _msm_bucket(gen, device, ptxas) -> dict:
             "max_abs_err": _max_err(_affine(run()), _affine(want)),
             **_times(run, plain_ms), **_bucket_bounds(px.shape[1], d)})
         del want
+    # the largest n with canonical scalars (drawn last, so that the shapes
+    # above keep their inputs from the seed)
+    for lanes in BUCKET_LANES:
+        px, py, d = _bucket_inputs(n_max, "canonical", lanes, gen, device,
+                                   aff)
+        got = _affine(cuda_point.msm_bucket(px, py, d, lanes))
+        want = _affine(cuda_point.plain_msm_bucket(px, py, d, lanes))
+        err = _max_err(got, want)
+        worst = max(worst, err)
+        cases.append({"n": n_max, "bits": "canonical", "lanes": lanes,
+                      "rows": d.shape[0], "max_abs_err": err})
     variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
     variants[0]["cases"] = cases
     # msm_many's bucket path (one launch for both columns, a short one
@@ -1250,7 +1285,9 @@ def _msm_bucket(gen, device, ptxas) -> dict:
                "halo2_tpu/msm/msm.py:54 _accumulate (lax.scan) + :113 "
                "_merge_lanes + :118 _reduce_buckets", variants,
                f"x, y (16, n), digits (rows, n), n < {SORT_BLOCK}")
-    e["blocks_per_sm"] = cuda_point.occupancy()["msm_bucket"]
+    occ = cuda_point.occupancy()
+    e["blocks_per_sm"] = occ["msm_bucket"]
+    e["blocks_per_sm_128"] = occ["msm_bucket_128"]
     e.update(_ptxas_of(ptxas, "msm_bucket_kernel"))
     return e
 

@@ -439,46 +439,210 @@ __global__ void __launch_bounds__(THREADS) fixed_base_kernel(
 // reference's whole bucket path below 2048 points: its lax.scan of mixed
 // adds into lane-private buckets (halo2_tpu/msm/msm.py:54 _accumulate),
 // the lane merge (:113 _merge_lanes) and the reduction (:118
-// _reduce_buckets).
+// _reduce_buckets).  The reference keeps one bucket column a lane so that
+// its scatter never conflicts; here one block takes a row and sorts its
+// points by digit in shared memory (a histogram, the buckets' starts, a
+// scatter of digit and index), so every bucket is one run of a sorted
+// list and the lanes are merged as the points are added.
 //
-// One block a row, one thread a bucket (thread b owns bucket b; bucket 0
-// is the discard bucket and takes nothing).  The reference keeps one
-// bucket column a lane so that its scatter never conflicts; here the
-// block sorts the row's points by digit in shared memory instead (a
-// histogram, its scan, a scatter of the point indices), so every thread
-// walks its own bucket's list and mixed-adds those points into the
-// running sum in its registers: no conflict, no atomics on points, and
-// the lanes of a warp run the same formula side by side.  The points come
-// in chunks of BUCKET_CHUNK.  Lanes are thus merged as they are
-// accumulated: a bucket sums every share of the points.
+// What bounds it on an H100: at the reference's sizes (n < 2048 points,
+// 32-160 rows) a row's chain of dependent point operations.  A one-thread
+// complete add is some 14 us of dependent products on a SM with one row
+// (27,000 cycles: radix round 1 at n = 2047); a group of 8 threads makes
+// one in two levels of products (the Horner kernel's add_grouped) in some
+// 4 us; where two rows share a SM, their multiply-adds count too.  The
+// design (PERF.md; clock64 cycles a phase by
+// examples/torch_bucket_probe.py --variants):
 //
-// Then the reduction, in shared memory (three 256-entry coordinate
-// arrays, 24 KiB): a Hillis-Steele suffix scan S_b = sum_{j >= b} B_j (8
-// rounds), slot 0 set to the identity, and a halving tree sum of S_1 ..
-// S_255 (8 rounds): sum_{b >= 1} S_b = sum_b b * B_b.  A complete add with
-// the identity on either side is skipped (the other operand is the sum),
-// which saves the sparse rows of a small n most of their adds.  The
-// projective limbs differ from the plain version's (the order of the adds
-// within a bucket follows the atomics of the scatter); the group element,
-// and so the affine point, is the same.
+// 1. The fill is balanced by points, not by buckets.  Of the M listed
+//    points of a chunk, thread t takes the L = ceil(M / T) positions from
+//    t L on, whatever their buckets, and sums them in registers piece by
+//    piece, a piece being the positions of one bucket inside the run (its
+//    first point is taken as (x, y, 1): no add).  A piece that holds its
+//    whole bucket goes to the bucket's slot.  Only a run's first and last
+//    piece can share a bucket with other runs: the last pieces form chains
+//    of threads, summed by a segmented Hillis-Steele scan over the threads
+//    for as many rounds as the longest chain needs (none where no bucket
+//    crosses a run); the thread where a bucket ends writes it, and a first
+//    piece whose bucket began earlier (in its slot) takes its
+//    predecessor's chain sum.  The crowded top window of a 254-bit scalar
+//    (digits up to 0x30: some 42 points a bucket at n = 2047) costs its
+//    row L mixed adds a thread and three rounds, not one thread's 42 adds.
+// 2. The reduction does about the running sum's work in 18 steps: with
+//    b = 16 h + l, sum_b b B_b = 16 sum_h h C_h + sum_l l D_l, where C_h =
+//    sum_l B_{16h+l} and D_l = sum_h B_{16h+l}.  The 30 sums of 16 (C_0
+//    and D_0 have weight 0) take 450 adds in 4 pairwise rounds (256, 128,
+//    64, 32 adds: the first two a thread an add, the rest a group of 8
+//    threads an add).  Then the 8 bit planes F_j = sum of the D_l (j < 4)
+//    or C_h (j >= 4) whose bit j & 3 is set, each a sum of 8 in 3 rounds
+//    (56 adds), and sum_j 2^j F_j by a tree: F_2k + 2 F_2k+1, then x + 4 y,
+//    then x + 16 y (12 doublings, 7 deep; 7 adds).  513 complete adds a
+//    dense row, against some 2,050 of the suffix scan and halving tree this
+//    kernel ran before.  An add with the identity on either side is
+//    skipped, which keeps the sparse rows of a small n cheap.
+// 3. The rows spread over the card: a block of T = 256 threads a row where
+//    the rows fit the SMs one a SM, of T = 128 where there are more rows
+//    than SMs (the golden K = 9 batch: 160 rows), two of which fit a SM
+//    (198 registers, 75 KiB of shared memory each), so every row starts at
+//    once.  The point operations are calls (add_any, add_point, the
+//    grouped ones), and a one-thread add makes two independent products a
+//    call (fq_mul2, formulas.py's levels).
 //
-// Bound by operations: a mixed add for every non-zero digit and the
-// reduction's complete adds, on 128 bytes a point, 4 a digit and 192 a
-// row written.  At the reference's sizes (n < 2048, a few hundred rows)
-// the rows do not fill the card, and the reduction's 16 rounds of 256
-// adds set the time; two blocks a SM overlap two rows' rounds.  Of the
-// three forms measured on an H100 (PERF.md) this one compiles to 128
-// registers and no stack; rebuilding the identity where it is used took
-// 188 (one block a SM), and a bound of two blocks a SM spilled 80 bytes,
-// both slower.  The top window of a 254-bit scalar has 6 bits, so its
-// points crowd 63 buckets: its block makes the most adds a thread.
+// Measured on an H100 and dropped (examples/torch_bucket_probe.py
+// --variants, device ms of the golden batch / n = 16 / n = 2047 against
+// 0.1760 / 0.0710 / 0.2165 kept): blocks of 256 threads at every row count
+// 0.2541 (160 rows in two waves) / 0.0716 / 0.2181; the same under
+// __launch_bounds__(256, 2), 128 registers and 244 bytes of spills, 0.2343
+// / 0.0851 / 0.2552; one product a call (fq_mul alone) 0.1886 / 0.0783 /
+// 0.2309; blocks of 128 at every row count 0.1775 / 0.0736 / 0.2513
+// (another call, 0.1777 / 0.0697 / 0.2171 kept).  A cluster of blocks a
+// row (partials through distributed shared memory) was not built: a
+// row's time is its dependent chain, which more SMs do not shorten, and
+// 160 rows already fill the SMs.
+//
+// The projective limbs differ from the plain version's (the adds follow
+// the sort's atomics and another tree); the group element, and so the
+// affine point, is the same.  Shared memory: the bucket slots and the
+// chains' slots (two 256-entry coordinate arrays, 48 KiB, which the
+// reduction's rounds also use in turn), the groups' exchange (16 KiB), the
+// sorted list of a chunk (8 KiB): 75 KiB, dynamic.
 constexpr int NB = 256;               // buckets of a window (c = 8)
 constexpr int BUCKET_CHUNK = 2048;    // point indices sorted at a time
+constexpr int BGROUPS = NB / HG;      // groups of HG threads, at most
 
-__device__ __forceinline__ Pt add_skip_identity(const Pt& p, const Pt& q) {
+struct BucketSmem {
+  Fe sx[NB], sy[NB], sz[NB];          // the buckets; then rounds 2, 4, ...
+  Fe vx[NB], vy[NB], vz[NB];          // the chains; then rounds 1, 3, ...
+  Fe xch[BGROUPS][2][HG];             // the groups' product exchange
+  int list[BUCKET_CHUNK];             // (digit << 16) | index, by digit
+  int count[NB];
+  int start[NB + 1];                  // bucket b: list[start[b], start[b+1])
+  int cursor[NB];
+  int span;                           // the longest chain, in threads
+};
+
+// Two independent Montgomery products over Fq in one call, their CIOS
+// rows interleaved so that each chain of dependent multiply-adds fills the
+// other's latency: a one-thread point formula otherwise waits on one
+// product at a time, and at the few warps a bucket block keeps on an SM
+// the latency of the products, not the multiply-add rate, sets its pace.
+// Not inlined (one copy of the body, operands and results in registers),
+// as fq_mul.
+struct Fe2 {
+  Fe a, b;
+};
+
+__device__ __noinline__ Fe2 fq_mul2(Fe a1, Fe b1, Fe a2, Fe b2) {
+  uint32_t t[NW + 2], u[NW + 2];
+#pragma unroll
+  for (int k = 0; k < NW + 2; ++k) t[k] = u[k] = 0;
+  const Fe p = modulus<FQ>();
+  const uint32_t inv = MONT_INV[FQ];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    mad_row(t, a1, b1.w[i]);
+    mad_row(u, a2, b2.w[i]);
+    const uint32_t mt = t[0] * inv, mu = u[0] * inv;
+    mad_row(t, p, mt);
+    mad_row(u, p, mu);
+#pragma unroll
+    for (int k = 0; k < NW + 1; ++k) {
+      t[k] = t[k + 1];
+      u[k] = u[k + 1];
+    }
+    t[NW + 1] = u[NW + 1] = 0;
+  }
+  Fe2 r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    r.a.w[k] = t[k];
+    r.b.w[k] = u[k];
+  }
+  r.a = cond_sub_p<FQ>(r.a);
+  r.b = cond_sub_p<FQ>(r.b);
+  return r;
+}
+
+// The second level of the add formulas (formulas.py add_levels), from the
+// first level's results: 6 products in three fq_mul2 calls.
+__device__ __forceinline__ Pt add_level2(Fe t0, Fe t1, Fe t2, const Fe& t3,
+                                         const Fe& t4, Fe y3) {
+  t0 = fq_add(fq_add(t0, t0), t0);
+  t2 = mul_by_9(t2);
+  const Fe z3 = fq_add(t1, t2);
+  t1 = fq_sub(t1, t2);
+  y3 = mul_by_9(y3);
+  const Fe2 d = fq_mul2(t4, y3, t3, t1);
+  const Fe2 e = fq_mul2(y3, t0, t1, z3);
+  const Fe2 f = fq_mul2(t0, t3, z3, t4);
+  Pt r;
+  r.x = fq_sub(d.b, d.a);
+  r.y = fq_add(e.b, e.a);
+  r.z = fq_add(f.b, f.a);
+  return r;
+}
+
+// add_complete (RCB15 algorithm 7) by one thread as two levels of 6
+// independent products, each level three fq_mul2 calls: the same field
+// operations as add_complete, so the same result.
+__device__ __forceinline__ Pt add_complete_ilp(const Pt& p, const Pt& q) {
+  const Fe2 a = fq_mul2(p.x, q.x, p.y, q.y);
+  const Fe2 b = fq_mul2(p.z, q.z, fq_add(p.x, p.y), fq_add(q.x, q.y));
+  const Fe2 c = fq_mul2(fq_add(p.y, p.z), fq_add(q.y, q.z),
+                        fq_add(p.x, p.z), fq_add(q.x, q.z));
+  return add_level2(a.a, a.b, b.a, fq_sub(b.b, fq_add(a.a, a.b)),
+                    fq_sub(c.a, fq_add(a.b, b.a)),
+                    fq_sub(c.b, fq_add(a.a, b.a)));
+}
+
+// add_mixed (RCB15 algorithm 8) by one thread: 5 products (two fq_mul2,
+// one fq_mul), then add_complete_ilp's second level with t2 = z1 (its
+// first level's t2 = z1 * z2, z2 = 1)
+__device__ __forceinline__ Pt add_mixed_ilp(const Pt& p, const Fe& x2,
+                                            const Fe& y2) {
+  const Fe2 a = fq_mul2(p.x, x2, p.y, y2);
+  const Fe2 b = fq_mul2(fq_add(x2, y2), fq_add(p.x, p.y), y2, p.z);
+  const Fe y3 = fq_add(fq_mul(x2, p.z), p.x);
+  return add_level2(a.a, a.b, p.z, fq_sub(b.a, fq_add(a.a, a.b)),
+                    fq_add(b.b, p.y), y3);
+}
+
+__device__ __forceinline__ Pt identity() {    // (0 : 1 : 0)
+  Pt p;
+  p.x = fe_zero();
+  p.y = one_mont<FQ>();
+  p.z = fe_zero();
+  return p;
+}
+
+// The kernel's point operations, each a call (not inlined): the kernel
+// body keeps few values live across one, so that it and the formulas fit
+// the 128 registers of two blocks a SM without spilling.  An operand that
+// is the identity is skipped (the other operand is the sum), which keeps
+// the sparse rows of a small n cheap.
+__device__ __noinline__ Pt add_any(Pt p, Pt q) {        // one thread
   if (fe_is_zero(q.z)) return p;
   if (fe_is_zero(p.z)) return q;
-  return add_complete(p, q);
+  return add_complete_ilp(p, q);
+}
+
+__device__ __noinline__ Pt add_point(Pt p, Fe x, Fe y) {  // one thread
+  return add_mixed_ilp(p, x, y);
+}
+
+// A group of HG threads, all with the same operands; the group is passed
+// by value: a formula's two exchanges leave its parity as they found it.
+__device__ __noinline__ Pt add_any_grouped(Group gr, Pt p, Pt q) {
+  if (fe_is_zero(q.z)) return p;
+  if (fe_is_zero(p.z)) return q;
+  return add_grouped(gr, p, q);
+}
+
+// 2^k p
+__device__ __noinline__ Pt times_2k_grouped(Group gr, Pt p, int k) {
+  if (fe_is_zero(p.z)) return p;
+  for (int i = 0; i < k; ++i) p = double_grouped(gr, p);
+  return p;
 }
 
 __device__ __forceinline__ void put_slot(Fe* sx, Fe* sy, Fe* sz, int b,
@@ -497,87 +661,225 @@ __device__ __forceinline__ Pt get_slot(const Fe* sx, const Fe* sy,
   return p;
 }
 
+// The operands (u, w) of add `item` of a radix round of `half` adds a side
+// (128, 64, 32, 16), whose result goes to slot `item`: items below `half`
+// pair the row sums (2i, 2i + 1); the others, q = item - half, pair the
+// column sums of rows 2k and 2k + 1 (k = q >> 4, l = q & 15), laid out 16
+// a row from slot `d_in` on (the buckets themselves in round 1).
+__device__ __forceinline__ void radix_pair(int half, int d_in, int item,
+                                           int& u, int& w) {
+  if (item < half) {
+    u = 2 * item;
+    w = u + 1;
+  } else {
+    const int q = item - half;
+    u = d_in + 32 * (q >> 4) + (q & 15);
+    w = u + 16;
+  }
+}
+
+// the k-th (0..7) of the 16 indices whose bit j is set
+__device__ __forceinline__ int with_bit(int k, int j) {
+  return ((k >> j) << (j + 1)) | (1 << j) | (k & ((1 << j) - 1));
+}
+
 __global__ void __launch_bounds__(NB) msm_bucket_kernel(
     const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
     const int32_t* __restrict__ digits, int64_t n, int rows,
     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
     uint32_t* __restrict__ oz) {
-  __shared__ Fe sx[NB], sy[NB], sz[NB];
-  __shared__ int count[NB];
-  __shared__ int fill[NB];
-  __shared__ int list[BUCKET_CHUNK];
-  const int b = threadIdx.x;
-  Pt ident;                                   // the identity (0 : 1 : 0)
-  ident.x = fe_zero();
-  ident.y = one_mont<FQ>();
-  ident.z = fe_zero();
+  extern __shared__ __align__(16) unsigned char bucket_smem[];
+  BucketSmem& sm = *reinterpret_cast<BucketSmem*>(bucket_smem);
+  Fe* const sx = sm.sx;
+  Fe* const sy = sm.sy;
+  Fe* const sz = sm.sz;
+  Fe* const vx = sm.vx;
+  Fe* const vy = sm.vy;
+  Fe* const vz = sm.vz;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;                   // 128 or 256
+  const int K = NB / T;                       // buckets a thread
+  const int g = t / HG;
+  const int G = T / HG;                       // groups
+  Group gr;
+  gr.buf = &sm.xch[g];
+  gr.mask = 0xFFu << (t % 32 / HG * HG);
+  gr.r = t % HG;
+  gr.parity = 0;
   for (int r = blockIdx.x; r < rows; r += gridDim.x) {
     const int32_t* dig = digits + (int64_t)r * n;
-    Pt acc = ident;
+    for (int b = t; b < NB; b += T) put_slot(sx, sy, sz, b, identity());
     for (int64_t c0 = 0; c0 < n; c0 += BUCKET_CHUNK) {
       const int m = (int)min((int64_t)BUCKET_CHUNK, n - c0);
-      count[b] = 0;
+      for (int b = t; b < NB; b += T) sm.count[b] = 0;
+      if (t == 0) sm.span = 1;
       __syncthreads();
-      for (int t = b; t < m; t += NB) {
-        const int d = dig[c0 + t] & (NB - 1);
-        if (d) atomicAdd(&count[d], 1);
+      for (int i = t; i < m; i += T) {
+        const int d = dig[c0 + i] & (NB - 1);
+        if (d) atomicAdd(&sm.count[d], 1);
       }
       __syncthreads();
-      // inclusive scan of the counts (Hillis-Steele over the 256 slots)
-      const int mine = count[b];
-      fill[b] = mine;
+      // the buckets' starts: thread t sums its K buckets t K .. t K + K - 1,
+      // a Hillis-Steele scan over the threads, then their starts in turn
+      int mine = 0;
+      for (int j = 0; j < K; ++j) mine += sm.count[t * K + j];
+      sm.cursor[t] = mine;
       __syncthreads();
-      for (int s = 1; s < NB; s <<= 1) {
-        const int v = b >= s ? fill[b - s] : 0;
+      for (int s = 1; s < T; s <<= 1) {
+        const int v = t >= s ? sm.cursor[t - s] : 0;
         __syncthreads();
-        fill[b] += v;
+        sm.cursor[t] += v;
         __syncthreads();
       }
-      const int start = fill[b] - mine;
+      int run = sm.cursor[t] - mine;
       __syncthreads();
-      fill[b] = start;                        // the scatter's cursor
+      for (int j = 0; j < K; ++j) {
+        const int b = t * K + j;
+        sm.start[b] = sm.cursor[b] = run;     // the scatter's cursor
+        run += sm.count[b];
+      }
+      if (t == T - 1) sm.start[NB] = run;
       __syncthreads();
-      for (int t = b; t < m; t += NB) {
-        const int d = dig[c0 + t] & (NB - 1);
-        if (d) list[atomicAdd(&fill[d], 1)] = (int)(c0 + t);
+      for (int i = t; i < m; i += T) {
+        const int d = dig[c0 + i] & (NB - 1);
+        if (d) sm.list[atomicAdd(&sm.cursor[d], 1)] = (d << 16) | i;
       }
       __syncthreads();
-      for (int j = start; j < start + mine; ++j) {
-        const int64_t i = list[j];
-        acc = add_mixed(acc, load_fe(px, n, i), load_fe(py, n, i));
+      // the fill: thread t sums the listed positions [a, e), runs of
+      // L = ceil(M / T), piece by piece
+      const int M = sm.start[NB];
+      const int L = (M + T - 1) / T;
+      const int a = min(t * L, M), e = min(a + L, M);
+      Pt part = identity();                   // the open piece
+      int pb = 0;                             // its bucket (0: none yet)
+      int hb = 0;                             // a first piece's bucket that
+                                              // began before a, ends here
+      for (int j = a; j < e; ++j) {
+        const int w = sm.list[j];
+        const int d = w >> 16;
+        const int64_t i = c0 + (w & 0xFFFF);
+        const Fe x = load_fe(px, n, i);
+        const Fe y = load_fe(py, n, i);
+        if (d != pb) {
+          if (pb) {                           // bucket pb ends inside the run
+            if (sm.start[pb] < a) hb = pb;
+            put_slot(sx, sy, sz, pb,
+                     add_any(get_slot(sx, sy, sz, pb), part));
+          }
+          part.x = x;
+          part.y = y;
+          part.z = one_mont<FQ>();
+          pb = d;
+        } else {
+          part = add_point(part, x, y);
+        }
       }
-      __syncthreads();                        // before the next chunk
+      // the chains: thread t carries its last piece's bucket pb from the
+      // thread `first` whose run holds that bucket's first point
+      const int first = pb && sm.start[pb] < a ? sm.start[pb] / L : t;
+      if (first < t) atomicMax(&sm.span, t - first + 1);
+      put_slot(vx, vy, vz, t, part);
+      __syncthreads();
+      const int span = sm.span;
+      for (int s = 1; s < span; s <<= 1) {
+        const bool take = t - s >= first;
+        Pt o;
+        if (take) o = get_slot(vx, vy, vz, t - s);
+        __syncthreads();
+        if (take) {
+          part = add_any(part, o);
+          put_slot(vx, vy, vz, t, part);
+        }
+        __syncthreads();
+      }
+      // a bucket that ends with the run is whole in this thread's chain
+      if (a < e && sm.start[pb + 1] == e)
+        put_slot(sx, sy, sz, pb,
+                 add_any(get_slot(sx, sy, sz, pb), part));
+      // a first piece (in its slot) takes the chain of the runs before it
+      if (hb)
+        put_slot(sx, sy, sz, hb,
+                 add_any(get_slot(sx, sy, sz, hb),
+                                   get_slot(vx, vy, vz, t - 1)));
+      __syncthreads();                        // the list, chains, buckets
     }
-    // suffix scan: after the round of shift s, slot b holds the sum of
-    // the buckets b .. b + 2s - 1
-    Pt cur = acc;
-    put_slot(sx, sy, sz, b, cur);
+    // the reduction; rounds 1 and 2 a thread an add (round 1 skips C_0's
+    // and D_0's sums: weight 0)
+    for (int it = t; it < NB; it += T) {
+      int u, w;
+      radix_pair(NB / 2, 0, it, u, w);
+      const bool used = it < NB / 2 ? it >= 8 : (it & 15) != 0;
+      Pt s = identity();
+      if (used) s = add_any(get_slot(sx, sy, sz, u), get_slot(sx, sy, sz, w));
+      put_slot(vx, vy, vz, it, s);
+    }
     __syncthreads();
-    for (int s = 1; s < NB; s <<= 1) {
-      const bool has = b + s < NB;
-      Pt other = ident;
-      if (has) other = get_slot(sx, sy, sz, b + s);
-      __syncthreads();
-      if (has) {
-        cur = add_skip_identity(cur, other);
-        put_slot(sx, sy, sz, b, cur);
-      }
-      __syncthreads();
-    }
-    // drop S_0 (the discard bucket's suffix), then the tree sum
-    if (b == 0) {
-      cur = ident;
-      put_slot(sx, sy, sz, 0, cur);
+    for (int it = t; it < NB / 2; it += T) {
+      int u, w;
+      radix_pair(NB / 4, NB / 2, it, u, w);
+      put_slot(sx, sy, sz, it,
+               add_any(get_slot(vx, vy, vz, u), get_slot(vx, vy, vz, w)));
     }
     __syncthreads();
-    for (int h = NB / 2; h >= 1; h >>= 1) {
-      if (b < h) {
-        cur = add_skip_identity(cur, get_slot(sx, sy, sz, b + h));
-        put_slot(sx, sy, sz, b, cur);
-      }
-      __syncthreads();
+    // rounds 3 (64 adds) and 4 (32) by groups of 8 threads
+    for (int it = g; it < NB / 4; it += G) {
+      int u, w;
+      radix_pair(NB / 8, NB / 4, it, u, w);
+      const Pt s = add_any_grouped(gr, get_slot(sx, sy, sz, u),
+                                   get_slot(sx, sy, sz, w));
+      if (gr.r == 0) put_slot(vx, vy, vz, it, s);
     }
-    if (b == 0) store_pt(ox, oy, oz, rows, r, cur);
+    __syncthreads();
+    for (int it = g; it < NB / 8; it += G) {
+      int u, w;
+      radix_pair(NB / 16, NB / 8, it, u, w);
+      const Pt s = add_any_grouped(gr, get_slot(vx, vy, vz, u),
+                                   get_slot(vx, vy, vz, w));
+      if (gr.r == 0) put_slot(sx, sy, sz, it, s);
+    }
+    __syncthreads();
+    // C_h in slots 0..15, D_l in 16..31.  The bit planes: plane j (0..7)
+    // sums the 8 D_l (j < 4) or C_h (j >= 4) whose bit j & 3 is set; a
+    // group a pair, then 16 and 8 adds
+    for (int it = g; it < 32; it += G) {
+      const int plane = it >> 2, p = it & 3;
+      const int base = plane < 4 ? 16 : 0;
+      const Pt s = add_any_grouped(
+          gr, get_slot(sx, sy, sz, base + with_bit(2 * p, plane & 3)),
+          get_slot(sx, sy, sz, base + with_bit(2 * p + 1, plane & 3)));
+      if (gr.r == 0) put_slot(vx, vy, vz, it, s);
+    }
+    __syncthreads();
+    if (g < 16) {                             // G >= 16
+      const Pt s = add_any_grouped(gr, get_slot(vx, vy, vz, 2 * g),
+                                   get_slot(vx, vy, vz, 2 * g + 1));
+      if (gr.r == 0) put_slot(sx, sy, sz, g, s);
+    }
+    __syncthreads();
+    if (g < 8) {
+      const Pt s = add_any_grouped(gr, get_slot(sx, sy, sz, 2 * g),
+                                   get_slot(sx, sy, sz, 2 * g + 1));
+      if (gr.r == 0) put_slot(vx, vy, vz, g, s);
+    }
+    __syncthreads();
+    // sum_j 2^j F_j: F_2k + 2 F_2k+1, then x + 4 y, then x + 16 y
+    if (g < 4) {
+      const Pt hi = times_2k_grouped(gr, get_slot(vx, vy, vz, 2 * g + 1), 1);
+      const Pt s = add_any_grouped(gr, get_slot(vx, vy, vz, 2 * g), hi);
+      if (gr.r == 0) put_slot(sx, sy, sz, g, s);
+    }
+    __syncthreads();
+    if (g < 2) {
+      const Pt hi = times_2k_grouped(gr, get_slot(sx, sy, sz, 2 * g + 1), 2);
+      const Pt s = add_any_grouped(gr, get_slot(sx, sy, sz, 2 * g), hi);
+      if (gr.r == 0) put_slot(vx, vy, vz, g, s);
+    }
+    __syncthreads();
+    if (g == 0) {
+      const Pt hi = times_2k_grouped(gr, get_slot(vx, vy, vz, 1), 4);
+      const Pt s = add_any_grouped(gr, get_slot(vx, vy, vz, 0), hi);
+      if (gr.r == 0) store_pt(ox, oy, oz, rows, r, s);
+    }
     __syncthreads();                          // the slots of the next row
   }
 }
@@ -586,10 +888,20 @@ __global__ void __launch_bounds__(NB) msm_bucket_kernel(
 
 extern "C" {
 
+// msm_bucket_kernel's shared memory is dynamic (above the 48 KiB of a
+// static allocation); the attribute that allows it is set once a process
+static int bucket_smem_attr() {
+  static const int err = (int)cudaFuncSetAttribute(
+      msm_bucket_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(BucketSmem));
+  return err;
+}
+
 // Resident blocks a multiprocessor can hold for kernel `which` (0 add,
 // 1 add_mixed, 2 double, 3 add_mixed_packed, 4 horner, 5 ladder,
-// 6 msm_scan, 7 fixed_base: blocks of THREADS threads; 8 msm_bucket: of
-// NB), from the CUDA occupancy calculator.
+// 6 msm_scan, 7 fixed_base: blocks of THREADS threads; 8 and 9
+// msm_bucket: of NB and NB / 2, with its dynamic shared memory), from the
+// CUDA occupancy calculator.
 int h2_point_occupancy(int which, int* blocks) {
   const void* fns[] = {(const void*)point_add_kernel,
                        (const void*)point_add_mixed_kernel,
@@ -599,10 +911,14 @@ int h2_point_occupancy(int which, int* blocks) {
                        (const void*)point_ladder_kernel,
                        (const void*)msm_scan_kernel,
                        (const void*)fixed_base_kernel,
+                       (const void*)msm_bucket_kernel,
                        (const void*)msm_bucket_kernel};
-  if (which < 0 || which >= 9) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which >= 10) return (int)cudaErrorInvalidValue;
+  const bool bucket = which >= 8;
+  if (bucket && bucket_smem_attr() != 0) return bucket_smem_attr();
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fns[which], which == 8 ? NB : THREADS, 0);
+      blocks, fns[which], bucket ? NB >> (which - 8) : THREADS,
+      bucket ? sizeof(BucketSmem) : 0);
 }
 
 int h2_point_add(const void* px, const void* py, const void* pz,
@@ -703,14 +1019,24 @@ int h2_fixed_base(const void* tab, const void* s, long long s_ls,
 }
 
 // px, py (16, n) affine limbs; digits (rows, n) int32 in [0, 256);
-// outputs (16, rows) x 3, the rows' totals
+// outputs (16, rows) x 3, the rows' totals.  A block of 256 threads a row
+// where the rows fit the SMs one a SM; where there are more rows than SMs,
+// blocks of 128, two of which fit a SM (registers, shared memory), so that
+// every row starts at once.
 int h2_msm_bucket(const void* px, const void* py, const void* digits,
                   long long n, int rows, void* ox, void* oy, void* oz,
                   void* stream) {
   if (rows <= 0) return 0;
   if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (bucket_smem_attr() != 0) return bucket_smem_attr();
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const int grid = rows < MAX_BLOCKS ? rows : MAX_BLOCKS;
-  msm_bucket_kernel<<<grid, NB, 0, (cudaStream_t)stream>>>(
+  msm_bucket_kernel<<<grid, rows > sms ? NB / 2 : NB, sizeof(BucketSmem),
+                      (cudaStream_t)stream>>>(
       (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)digits, n,
       rows, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz);
   return (int)cudaGetLastError();

@@ -66,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from halo2_tpu_torch.fields import cuda_ops
@@ -79,8 +80,10 @@ MASK = (1 << LIMB_BITS) - 1
 launch_counts = {"point_op": 0, "add_mixed_packed": 0, "msm_scan": 0,
                  "horner": 0, "ladder": 0, "fixed_base": 0, "msm_bucket": 0}
 
-# buckets of a window of the bucket path (8-bit digits)
+# buckets of a window of the bucket path (8-bit digits), and the points
+# msm_bucket_kernel sorts at a time (csrc/point_kernels.cu)
 BUCKETS = 256
+BUCKET_CHUNK = 2048
 
 _N_IN = {"add": 6, "add_mixed": 5, "double": 3}
 
@@ -313,6 +316,121 @@ def plain_msm_bucket(px, py, digits, lanes: int):
     return _plain_sum_last(merged)
 
 
+def _radix_pairs(half: int, d_in: int):
+    """The operand slots (u, w) of a radix round's 2 * half adds, as
+    msm_bucket_kernel's `radix_pair` picks them: item i < half pairs row
+    sums (2i, 2i + 1), item half + q the column sums 16 apart from d_in."""
+    i = np.arange(half)
+    u = np.concatenate([2 * i, d_in + 32 * (i >> 4) + (i & 15)])
+    w = np.concatenate([2 * i + 1, d_in + 32 * (i >> 4) + (i & 15) + 16])
+    return u, w
+
+
+def _with_bit(k, j):
+    return ((k >> j) << (j + 1)) | (1 << j) | (k & ((1 << j) - 1))
+
+
+def bucket_threads(rows: int, sms: int) -> int:
+    """The block size h2_msm_bucket launches msm_bucket_kernel with for
+    `rows` rows on a card of `sms` multiprocessors: 256 threads where the
+    rows fit the SMs one a SM, else 128 (two blocks a SM)."""
+    return BUCKETS // 2 if rows > sms else BUCKETS
+
+
+def _bucket_row_ops(row: np.ndarray, ops: dict, T: int) -> None:
+    """Adds to `ops` the point operations msm_bucket_kernel makes on one
+    row of digits in a block of T threads, walking its schedule on
+    presence flags (an add whose operand is the identity is skipped, and
+    not counted)."""
+    NB = BUCKETS
+    t = np.arange(T)
+    S = np.zeros(NB, dtype=bool)                  # the buckets' slots
+    for c0 in range(0, len(row), BUCKET_CHUNK):
+        dd = row[c0:c0 + BUCKET_CHUNK] & (NB - 1)
+        lst = np.sort(dd[dd != 0])                 # the sorted list's digits
+        M = len(lst)
+        start = np.searchsorted(lst, np.arange(NB + 1))
+        start[NB] = M
+        L = -(-M // T)
+        a = np.minimum(t * L, M)
+        e = np.minimum(a + L, M)
+        full = a < e
+        # pieces: a run's positions split where the digit changes
+        new = np.ones(M, dtype=bool)
+        new[1:] = lst[1:] != lst[:-1]
+        new[a[full]] = True
+        ops["mixed_adds"] += int(M - new.sum())
+        # each bucket is written once a chunk: an add where its slot holds
+        # an earlier chunk's sum
+        nonempty = np.flatnonzero(start[1:] > start[:-1])
+        ops["complete_adds"] += int(S[nonempty].sum())
+        S[nonempty] = True
+        pb = np.where(full, lst[np.maximum(e - 1, 0)] if M else 0, 0)
+        first = np.where((pb > 0) & (start[pb] < a),
+                         start[pb] // max(L, 1), t)
+        V = full.copy()
+        s = 1
+        while s < (t - first + 1).max():
+            take = t - s >= first
+            other = np.zeros(T, dtype=bool)
+            other[s:] = V[:-s]
+            ops["complete_adds"] += int((take & V & other).sum())
+            V = V | (take & other)
+            s <<= 1
+        # the heads: runs with more than one piece whose first bucket began
+        # before them
+        first_bucket = np.where(full, lst[np.minimum(a, max(M - 1, 0))]
+                                if M else 0, 0)
+        head = full & (first_bucket != pb) & (start[first_bucket] < a)
+        ops["complete_adds"] += int((head[1:] & V[:-1]).sum())
+    # the reduction
+    P = S.copy()
+    P[0] = False
+    for half, d_in in ((128, 0), (64, 128), (32, 64), (16, 32)):
+        u, w = _radix_pairs(half, d_in)
+        if half == 128:                           # C_0's and D_0's sums
+            used = np.concatenate([np.arange(128) >= 8,
+                                   np.arange(128) & 15 != 0])
+            u, w = u[used], w[used]
+            items = np.flatnonzero(used)
+        else:
+            items = np.arange(2 * half)
+        ops["complete_adds"] += int((P[u] & P[w]).sum())
+        out = np.zeros(NB, dtype=bool)
+        out[items] = P[u] | P[w]
+        P = out
+    g = np.arange(32)
+    plane, p = g >> 2, g & 3
+    base = np.where(plane < 4, 16, 0)
+    u = base + _with_bit(2 * p, plane & 3)
+    w = base + _with_bit(2 * p + 1, plane & 3)
+    ops["complete_adds"] += int((P[u] & P[w]).sum())
+    P = P[u] | P[w]
+    for _ in range(2):                            # 16, then 8 adds
+        ops["complete_adds"] += int((P[0::2] & P[1::2]).sum())
+        P = P[0::2] | P[1::2]
+    for doublings in (1, 2, 4):                   # x + 2^k y
+        lo, hi = P[0::2], P[1::2]
+        ops["doublings"] += doublings * int(hi.sum())
+        ops["complete_adds"] += int((lo & hi).sum())
+        P = lo | hi
+
+
+def msm_bucket_ops(digits, threads: int = BUCKETS) -> dict:
+    """The point operations msm_bucket_kernel makes on these digits ((rows,
+    n), values in [0, 256)) in blocks of `threads` (bucket_threads): the
+    fill's mixed adds (a piece's first point costs none), the complete
+    adds of its chains, bucket writes and reduction, and the reduction's
+    doublings; an add with the identity is skipped and not counted.  The
+    kernel's own count, for a report beside the function's bound;
+    computed on the host."""
+    d = np.asarray(torch.as_tensor(digits).cpu(), dtype=np.int64)
+    ops = {"mixed_adds": 0, "complete_adds": 0, "doublings": 0}
+    for row in d.reshape(-1, d.shape[-1]):
+        _bucket_row_ops(row, ops, threads)
+    return ops
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -348,13 +466,13 @@ def _lib():
 
 OCCUPANCY_KERNELS = ("add", "add_mixed", "double", "add_mixed_packed",
                      "horner", "ladder", "msm_scan", "fixed_base",
-                     "msm_bucket")
+                     "msm_bucket", "msm_bucket_128")
 
 
 def occupancy(lib=None) -> dict:
     """Resident blocks a multiprocessor holds, per point kernel of `lib`
     (default: the package's build), from the CUDA occupancy calculator:
-    blocks of 128 threads, and of 256 for msm_bucket."""
+    blocks of 128 threads, and of 256 and 128 for msm_bucket."""
     lib = lib or _lib()
     out = {}
     for which, name in enumerate(OCCUPANCY_KERNELS):

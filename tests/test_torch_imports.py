@@ -38,7 +38,7 @@ SCRIPTS = ["chip_smoke", "examples.torch_mxu_dft_probe",
            "examples.torch_bench_keygen", "examples.torch_chain_probe",
            "examples.torch_setup_probe", "examples.torch_simple_example",
            "examples.torch_range_check_example",
-           "examples.torch_profile_msm"]
+           "examples.torch_profile_msm", "examples.torch_bucket_probe"]
 
 _BLOCKED_IMPORT = """
 import importlib, sys
