@@ -31,7 +31,13 @@ halo2_tpu_torch/native, then:
            2047 with both scalars, the kernel's own count of its adds
            (`kernel_adds`) printed beside the function's
            (`complete_adds`, which sets the bound), and msm_many's bucket
-           path against its sorted path;
+           path against its sorted path; the decode of canonical 32-byte
+           rows (`decode_le32`) against its plain version, limbs and each
+           column's stats, at C n = 1, 7, 2^16 + 3, 3 x 2^20, 2^21 and
+           3 x 2^22, masked and unmasked, a row >= p planted in one run,
+           timed at the last three beside its bound by bytes and the
+           pinned upload of the same rows, and its staged path twice
+           before any wait;
   golden   with the sanity checks (HALO2_TPU_SANITY_CHECKS) and the span
            profiler (synchronising) on, and the launch counts set to 0
            just before and read just after (every MSM there is below 2048
@@ -1292,6 +1298,115 @@ def _msm_bucket(gen, device, ptxas) -> dict:
     return e
 
 
+# the decode's (C, n): C n = 1, 7, 2^16 + 3, then the main path's, which
+# are timed: a k = 20 witness file (3 columns), the k = 20 blind (2^21
+# rows) and a k = 22 witness file; a row >= p is planted in the
+# unmasked k = 20 file
+DECODE_SHAPES = ((1, 1), (1, 7), (1, (1 << 16) + 3), (3, 1 << 20),
+                 (1, 1 << 21), (3, 1 << 22))
+DECODE_TIMED = 3
+DECODE_PLANT = (3, 1 << 20)
+# bytes a value: the row read, the limbs written
+DECODE_BYTES = 32 + N_LIMBS * WORD
+
+
+def _decode_rows(C, n, gen, device, mask):
+    """(C, n, 8) int32 words of random rows on the card: below 2^252 < p,
+    or any 256 bits where the decode masks them, with 0, 1, p - 1 and
+    2^253 - 1 as each column's first rows."""
+    words = torch.randint(0, 1 << 32, (C, n, 8), dtype=torch.int64,
+                          device=device, generator=gen).to(torch.int32)
+    if not mask:
+        words[..., 7] &= 0x0FFFFFFF
+    for i, x in enumerate([0, 1, P - 1, (1 << 253) - 1][:n]):
+        words[:, i] = torch.from_numpy(np.frombuffer(
+            x.to_bytes(32, "little"), dtype=np.int32).copy()).to(device)
+    return words
+
+
+def _u64_stats(stats) -> list:
+    return [[int(v) for v in row] for row in
+            stats.cpu().numpy().view(np.uint64)]
+
+
+def _plain_decode(F, rows, mask):
+    """The plain version over row chunks of each column: (limbs, stats as
+    ints), the chunks' stats joined by their maxima."""
+    C, n = rows.shape[:2]
+    limbs = torch.empty((N_LIMBS, C, n), dtype=torch.int32,
+                        device=rows.device)
+    stats = [[0] * cuda_ops.DECODE_STATS for _ in range(C)]
+    for c in range(C):
+        for j in range(0, n, PLAIN_CHUNK):
+            out, st = cuda_ops.plain_decode_le32(
+                F, rows[c:c + 1, j:j + PLAIN_CHUNK], mask)
+            limbs[:, c:c + 1, j:j + PLAIN_CHUNK] = out
+            stats[c] = [max(a, b) for a, b in zip(stats[c],
+                                                  _u64_stats(st)[0])]
+    return limbs, stats
+
+
+def _decode_le32(gen, device, ptxas) -> dict:
+    """decode_le32: one launch, against its plain version exactly (limbs
+    and each column's stats), masked and unmasked at every shape of
+    DECODE_SHAPES, a row >= p planted in one run; timed at the main
+    path's shapes beside the bound by bytes, with the pinned upload of the
+    same rows; and the staged path (`encode_le_bytes_dev`, twice without a
+    wait: the staging buffer is reused) against the plain version."""
+    F = fr(device)
+    variants, worst = [], 0
+    for idx, (C, n) in enumerate(DECODE_SHAPES):
+        for mask in (False, True):
+            rows = _decode_rows(C, n, gen, device, mask)
+            planted = (C, n) == DECODE_PLANT and not mask
+            if planted:
+                rows[1, n // 2] = torch.from_numpy(np.frombuffer(
+                    P.to_bytes(32, "little"), dtype=np.int32).copy())
+            (want, want_stats), plain_ms = profiling.timed(
+                lambda: _plain_decode(F, rows, mask))
+            _expect_launches("decode_le32", lambda: cuda_ops.decode_le32(
+                F, rows, mask), {"decode_le32": 1})
+            got, stats = cuda_ops.decode_le32(F, rows, mask)
+            err = _max_err(got, want)
+            if _u64_stats(stats) != want_stats:
+                raise AssertionError(f"decode_le32 {C} x {n} mask={mask}: "
+                                     f"stats differ from the plain version")
+            if planted and [s[4] for s in want_stats] != [0, 1, 0]:
+                raise AssertionError("decode_le32: the planted row >= p "
+                                     "is not flagged in its column alone")
+            worst = max(worst, err)
+            if idx < len(DECODE_SHAPES) - DECODE_TIMED:
+                continue
+            host = cuda_ops.staging(rows.numel() * WORD)
+            host.copy_(rows.reshape(-1).view(torch.uint8).cpu())
+            _, upload_ms = profiling.timed(
+                lambda: cuda_ops.upload(host, device))
+            variants.append({
+                "variant": f"Fr C={C} n={n} mask={mask}", "C": C, "n": n,
+                "max_abs_err": err, "planted_ge_p": planted,
+                **_times(lambda: cuda_ops.decode_le32(F, rows, mask),
+                         plain_ms, reps=20 if C * n <= 1 << 21 else 5),
+                **_bounds(DECODE_BYTES * C * n, C * n),
+                "upload_ms": upload_ms,
+                "upload_GB_per_s": rows.numel() * WORD / upload_ms / 1e6})
+            del rows, want, got
+    # the staged path, twice before any wait, against the plain version
+    blobs = [_decode_rows(1, (1 << 16) + 3, gen, device, False)
+             for _ in range(2)]
+    outs = [F.encode_le_bytes_dev(b.cpu().numpy(), b.shape[1])
+            for b in blobs]
+    for b, out in zip(blobs, outs):
+        worst = max(worst, _max_err(
+            out, cuda_ops.plain_decode_le32(F, b)[0][:, 0, :]))
+    variants[0]["max_abs_err"] = max(variants[0]["max_abs_err"], worst)
+    e = _entry("decode_le32", "halo2_tpu_torch/csrc/field_kernels.cu",
+               "none: host numpy passes (io/serialization.py load_witness, "
+               "plonk/vanishing.py _random_coeffs)", variants,
+               "rows (C, n, 8) u32 -> (16, C, n), C n = 3 x 2^20")
+    e.update(_ptxas_of(ptxas, "decode_le32_kernel"))
+    return e
+
+
 def phase_kernels(k: int, device, ptxas: dict) -> list:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
@@ -1321,7 +1436,8 @@ def phase_kernels(k: int, device, ptxas: dict) -> list:
                _point_horner(shs, gen, device, pts, ptxas),
                _point_ladder(sh, gen, device, pts),
                _fixed_base(sh, gen, device, ptxas),
-               _msm_bucket(gen, device, ptxas)]
+               _msm_bucket(gen, device, ptxas),
+               _decode_le32(gen, device, ptxas)]
     for e in entries:
         if e["max_abs_err"] != 0:
             raise AssertionError(
@@ -2283,7 +2399,8 @@ LAUNCH_KEY = {"field_binop": "binop", "ntt_butterfly": "butterfly",
               "add_mixed_packed": "add_mixed_packed",
               "msm_scan": "msm_scan", "point_horner": "horner",
               "point_ladder": "ladder", "fixed_base": "fixed_base",
-              "msm_bucket": "msm_bucket", "dft_epilogue": "dft_epilogue"}
+              "msm_bucket": "msm_bucket", "dft_epilogue": "dft_epilogue",
+              "decode_le32": "decode_le32"}
 ALL_PHASES = "env,kernels,golden,prove,args,multi,synth,large,mesh,dft"
 
 

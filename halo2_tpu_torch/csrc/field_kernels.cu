@@ -1,8 +1,9 @@
 // Field kernels: elementwise binary ops, the NTT butterfly, the
-// shared-table product, a power by a static exponent, the inversion, and
-// the prefix-product scan.  One thread per field element (a block per tile
-// in the scan), grid-stride loops, any element count (the ragged edge is a
-// bounds check, not padding).
+// shared-table product, a power by a static exponent, the inversion, the
+// prefix-product scan, and the decode of canonical 32-byte rows.  One
+// thread per field element (a block per tile in the scan and the decode),
+// grid-stride loops, any element count (the ragged edge is a bounds check,
+// not padding).
 // Plain C interface: every entry point launches on the given stream and
 // returns cudaGetLastError() as an int.
 #include <cuda_runtime.h>
@@ -660,6 +661,104 @@ int launch_scan(const void* a, long long a_ls, long long a_es, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// decode_le32: canonical 32-byte rows -> Montgomery limbs
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the JAX package decodes a witness file's rows
+// and the vanishing blind's random bytes on the host (numpy), and so did
+// the port before this kernel.  Here the rows go up to the card as they
+// lie in the file or in the blob, 32 bytes a value, and one launch makes
+// the (16, C, n) limbs: for C columns of n rows of eight little-endian
+// 32-bit words, optionally masked to 253 bits, each value times R^2 by a
+// Montgomery product (x R mod p; mont_mul's result stays below 2p for any
+// x below 2^256 when the other factor is below p, so rows at or above p
+// decode to x mod p as well).  Beside the limbs, for each column, the
+// maximum of each of the value's four 64-bit words and a flag for a row
+// >= p (stats: 5 u64 a column, zeroed before the launch).
+//
+// Bound by bytes: 32 read and 64 written a value, against 264
+// multiply-adds of the product.  The rows are value-major and the limbs
+// limb-major, so a tile of DEC_TILE values turns in shared memory: the
+// block reads the tile's 16-byte chunks coalesced (chunk q by thread q),
+// each thread takes its value's two chunks from shared memory (chunk h of
+// value i at 2i + (h ^ bit 2 of i): a quarter-warp's 16-byte reads and
+// writes hit distinct banks), and each limb's store is coalesced across
+// the threads.  blockIdx.y is the column, so a tile never straddles two;
+// a block walks the column's tiles, keeps its threads' maxima in
+// registers, and reduces them once at the end: a warp by shuffles, the
+// block through shared memory, then one thread's five atomicMax.
+
+constexpr int DEC_TILE = 256;
+constexpr int DEC_MAX_BLOCKS = 132 * 8;
+constexpr int DEC_STATS = 5;  // four word maxima and the >= p flag
+
+struct DecodeConsts {
+  uint32_t r2[NW];  // R^2 mod p, canonical words
+};
+
+__device__ __forceinline__ unsigned long long umax64(unsigned long long a,
+                                                     unsigned long long b) {
+  return a > b ? a : b;
+}
+
+template <int F>
+__global__ void __launch_bounds__(DEC_TILE) decode_le32_kernel(
+    const uint4* __restrict__ rows, uint32_t* __restrict__ out, int64_t n,
+    int64_t total, uint32_t top_mask, DecodeConsts c,
+    unsigned long long* __restrict__ stats) {
+  __shared__ uint4 tile[2 * DEC_TILE];
+  __shared__ unsigned long long part[DEC_TILE / 32][DEC_STATS];
+  const int t = threadIdx.x;
+  const int64_t col = blockIdx.y;
+  Fe r2;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r2.w[k] = c.r2[k];
+  unsigned long long mx[DEC_STATS] = {0, 0, 0, 0, 0};
+  const int64_t tiles = (n + DEC_TILE - 1) / DEC_TILE;
+#pragma unroll 1
+  for (int64_t tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+    const int64_t first = col * n + tl * DEC_TILE;  // the tile's value 0
+    const int64_t left = n - tl * DEC_TILE;
+    const int count = left < DEC_TILE ? (int)left : DEC_TILE;
+    __syncthreads();  // the previous tile's chunks are read
+    for (int q = t; q < 2 * count; q += DEC_TILE) {
+      const int i = q >> 1;
+      tile[2 * i + ((q & 1) ^ ((i >> 2) & 1))] = rows[2 * first + q];
+    }
+    __syncthreads();
+    if (t < count) {
+      const int s = (t >> 2) & 1;
+      const uint4 a = tile[2 * t + s], b = tile[2 * t + (s ^ 1)];
+      Fe x;
+      x.w[0] = a.x; x.w[1] = a.y; x.w[2] = a.z; x.w[3] = a.w;
+      x.w[4] = b.x; x.w[5] = b.y; x.w[6] = b.z; x.w[7] = b.w & top_mask;
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        mx[w] = umax64(mx[w], ((unsigned long long)x.w[2 * w + 1] << 32) |
+                                  x.w[2 * w]);
+      Fe d;
+      if (!sub8(d, x, modulus<F>())) mx[4] = 1;  // no borrow: x >= p
+      store_fe(out, total, first + t, mont_mul<F>(x, r2));
+    }
+  }
+  const int lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int w = 0; w < DEC_STATS; ++w) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx[w] = umax64(mx[w], __shfl_down_sync(FULL_MASK, mx[w], off));
+    if (lane == 0) part[warp][w] = mx[w];
+  }
+  __syncthreads();
+  if (t < DEC_STATS) {
+    unsigned long long v = 0;
+#pragma unroll
+    for (int k = 0; k < DEC_TILE / 32; ++k) v = umax64(v, part[k][t]);
+    if (v) atomicMax(stats + DEC_STATS * col + t, v);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -831,6 +930,40 @@ int h2_scan(int field, int per_thread, const void* a, long long a_ls,
   if (field == FQ) H2_BY_V(FQ);
 #undef H2_BY_V
   return (int)cudaErrorInvalidValue;
+}
+
+// rows: C * n rows of 32 bytes, 16-byte aligned; out: (16, C, n) words;
+// top_mask: what word 7 of each row keeps (0x1FFFFFFF: 253 bits);
+// r2: R^2 mod p, canonical words; stats: C * 5 u64, zeroed here, then
+// each column's four word maxima and its >= p flag
+int h2_decode_le32(int field, const void* rows, long long C, long long n,
+                   unsigned int top_mask, const unsigned int* r2, void* out,
+                   void* stats, void* stream) {
+  if (C <= 0 || n < 0 || C > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(
+      stats, 0, (size_t)C * DEC_STATS * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  DecodeConsts c;
+  for (int k = 0; k < NW; ++k) c.r2[k] = r2[k];
+  const int64_t tiles = (n + DEC_TILE - 1) / DEC_TILE;
+  int64_t gx = (DEC_MAX_BLOCKS + C - 1) / C;
+  if (gx > tiles) gx = tiles;
+  const dim3 grid((unsigned)gx, (unsigned)C);
+  const uint4* pr = (const uint4*)rows;
+  uint32_t* po = (uint32_t*)out;
+  unsigned long long* ps = (unsigned long long*)stats;
+  if (field == FR) {
+    decode_le32_kernel<FR><<<grid, DEC_TILE, 0, s>>>(pr, po, n, C * n,
+                                                     top_mask, c, ps);
+  } else if (field == FQ) {
+    decode_le32_kernel<FQ><<<grid, DEC_TILE, 0, s>>>(pr, po, n, C * n,
+                                                     top_mask, c, ps);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -27,6 +27,15 @@ compiles a `lax.scan` (halo2_tpu/fields/limbs.py):
 
 Their plain versions are the composed loops that stay in fields/limbs.py.
 
+One more replaces host numpy passes and no Pallas kernel:
+
+  decode_le32  canonical little-endian 32-byte rows (a witness file's
+               columns, the vanishing blind's random bytes), uploaded as
+               they are from a pinned staging buffer (`staging`,
+               `upload`), to Montgomery limbs, with each column's word
+               maxima and >= p flag; its plain version
+               `plain_decode_le32` is beside it
+
 What bounds them on an H100: a Montgomery product is 264 32-bit
 multiply-adds (CIOS: for each of 8 words, two rows of 8 low and 8 high
 multiply-adds and one product for m) on 128 bytes read and 64 written.
@@ -62,7 +71,7 @@ N_LIMBS = 16
 MASK = (1 << LIMB_BITS) - 1
 
 launch_counts = {"binop": 0, "butterfly": 0, "mul_tiled": 0, "pow": 0,
-                 "inv": 0, "scan": 0}
+                 "inv": 0, "scan": 0, "decode_le32": 0}
 
 _OPS = {"add": 0, "sub": 1, "mul": 2}
 _FIELD_IDS = {"Fr": 0, "Fq": 1}
@@ -259,9 +268,12 @@ def _lib():
                                  ctypes.c_uint32,
                                  ctypes.POINTER(ctypes.c_uint32), ci, vp]
     lib.h2_scan.argtypes = [ci, ci, vp, ll, ll, vp, ll, ll, ll, vp, ll, vp]
+    lib.h2_decode_le32.argtypes = [ci, vp, ll, ll, ctypes.c_uint32,
+                                   ctypes.POINTER(ctypes.c_uint32), vp, vp,
+                                   vp]
     for fn in (lib.h2_field_binop, lib.h2_butterfly, lib.h2_mul_tiled,
                lib.h2_field_pow, lib.h2_field_occupancy, lib.h2_field_inv,
-               lib.h2_scan):
+               lib.h2_scan, lib.h2_decode_le32):
         fn.restype = ci
     return lib
 
@@ -601,3 +613,111 @@ def mul_tiled(field, a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                  a.data_ptr(), t.data_ptr(), out.data_ptr(), mid, k)
     launch_counts["mul_tiled"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# decode_le32: canonical 32-byte rows, staged in pinned memory, decoded on
+# the card
+# ---------------------------------------------------------------------------
+
+# what word 7 of a row keeps: all of it, or its low 29 bits (253 bits a
+# value, below p)
+TOP_WORD = 0xFFFFFFFF
+TOP_WORD_253 = (1 << 29) - 1
+# the stats of a column: the maxima of its four 64-bit words, then 1 where
+# some row is >= p
+DECODE_STATS = 5
+_SIGN = -(1 << 63)
+
+# the one pinned staging buffer (uint8, grown only) and the event of the
+# copy that last read it
+_staged = {"buf": None, "event": None}
+
+
+def staging(nbytes: int) -> torch.Tensor:
+    """A pinned host uint8 tensor of nbytes to fill and `upload`: the one
+    staging buffer, reused and grown only, handed out once the copy that
+    last read it has finished."""
+    if _staged["event"] is not None:
+        _staged["event"].synchronize()
+        _staged["event"] = None
+    buf = _staged["buf"]
+    if buf is None or buf.numel() < nbytes:
+        _staged["buf"] = None
+        buf = _staged["buf"] = torch.empty(nbytes, dtype=torch.uint8,
+                                           pin_memory=True)
+    return buf[:nbytes]
+
+
+def upload(host: torch.Tensor, device) -> torch.Tensor:
+    """A view of the staging buffer -> a copy on the CUDA `device`, made
+    asynchronously on its current stream; the buffer is not handed out
+    again before the copy has finished."""
+    out = host.to(device, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    _staged["event"] = event
+    return out
+
+
+def plain_decode_le32(field, rows: torch.Tensor, mask: bool = False):
+    """`decode_le32`'s plain version, on any device: the words as 16-bit
+    limbs, one plain product by R^2, and the stats by comparisons."""
+    C, n = rows.shape[:2]
+    w = rows.to(torch.int64) & 0xFFFFFFFF                # (C, n, 8)
+    if mask:
+        w[..., 7] &= TOP_WORD_253
+    limbs = torch.stack([w & MASK, w >> LIMB_BITS], dim=-1)
+    limbs = limbs.reshape(C * n, N_LIMBS).T.to(torch.int32)
+    r2 = torch.tensor(_limb_list(field.R2, N_LIMBS), dtype=torch.int32,
+                      device=rows.device)[:, None]
+    out = plain_binop("mul", field, limbs,
+                      r2.expand(N_LIMBS, C * n)).reshape(N_LIMBS, C, n)
+    stats = torch.zeros((C, DECODE_STATS), dtype=torch.int64,
+                        device=rows.device)
+    if n:
+        # each 64-bit word less 2^63, exactly in an int64: the order is the
+        # unsigned one, and flipping the top bit gives the word's bits back
+        key = (w[..., 1::2] - (1 << 31)) * (1 << 32) + w[..., 0::2]
+        stats[:, :4] = key.amax(dim=1) ^ _SIGN
+        lt = torch.zeros((C, n), dtype=torch.bool, device=rows.device)
+        eq = torch.ones((C, n), dtype=torch.bool, device=rows.device)
+        for k in range(7, -1, -1):
+            pk = (field.p >> (32 * k)) & 0xFFFFFFFF
+            lt |= eq & (w[..., k] < pk)
+            eq &= w[..., k] == pk
+        stats[:, 4] = (~lt).any(dim=1).to(torch.int64)
+    return out, stats
+
+
+def decode_le32(field, rows: torch.Tensor, mask: bool = False):
+    """C columns of n canonical little-endian 32-byte rows, as (C, n, 8)
+    int32 words -> ((16, C, n) Montgomery limbs, (C, 5) int64 stats).
+    With `mask` each row keeps its low 253 bits first.  The stats of a
+    column are the maxima of its values' four 64-bit words (each word's
+    bits as an int64) and 1 where some row is >= p (such a row decodes to
+    its value mod p).  One launch for a CUDA tensor (16-byte aligned and
+    contiguous, as `upload` gives it); the plain version on the CPU."""
+    if rows.dtype != torch.int32 or rows.ndim != 3 or rows.shape[2] != 8:
+        raise ValueError(f"decode_le32: expected (C, n, 8) int32 words, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    dev = rows.device
+    if dev.type == "cpu":
+        return plain_decode_le32(field, rows, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_le32: unsupported device {dev}")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("decode_le32: the rows must be contiguous and "
+                         "16-byte aligned")
+    C, n = rows.shape[:2]
+    out = torch.empty((N_LIMBS, C, n), dtype=torch.int32, device=dev)
+    stats = torch.empty((C, DECODE_STATS), dtype=torch.int64, device=dev)
+    if C:
+        r2 = [(field.R2 >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+        build.launch(dev, _lib().h2_decode_le32, _FIELD_IDS[field.name],
+                     rows.data_ptr(), C, n,
+                     TOP_WORD_253 if mask else TOP_WORD,
+                     (ctypes.c_uint32 * 8)(*r2), out.data_ptr(),
+                     stats.data_ptr())
+        launch_counts["decode_le32"] += 1
+    return out, stats

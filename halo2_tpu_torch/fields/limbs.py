@@ -22,6 +22,8 @@ whose plain versions (`plain_pow_static`, `plain_pow_static(a, p - 2)`,
 `plain_prefix_mul`) are the composed loops here.  Everything else is composed of those.  The
 host conversions `encode_np` and `decode` go through the host codec
 (native/); `plain_encode_np` and `plain_decode` are their plain versions.
+Canonical 32-byte rows (`decode_le_rows`, `encode_le_bytes_dev`) go up as
+they are and are decoded on the card (`cuda_ops.decode_le32`).
 """
 
 from __future__ import annotations
@@ -163,13 +165,33 @@ class Field:
         return to_tensor(int_to_limbs_np(self.to_mont_int(x % self.p)),
                          self.device)
 
-    def encode_le_bytes_dev(self, blob: bytes, n: int) -> torch.Tensor:
-        """n canonical 32-byte little-endian values (< p) -> (16, n)
-        Montgomery limbs, converted on the device (32 bytes a value go up
-        instead of 64; one Montgomery mul by R^2)."""
-        halves = np.frombuffer(blob, dtype="<u2").reshape(n, N_LIMBS)
-        x = to_tensor(np.ascontiguousarray(halves.T), self.device)
-        return self.to_mont(x)
+    def decode_le_rows(self, fill, C: int, n: int, mask: bool = False):
+        """C columns of n canonical little-endian 32-byte rows, column after
+        column -> ((16, C, n) Montgomery limbs, (C, 5) int64 stats) on the
+        device (`cuda_ops.decode_le32`; `mask`: 253 bits a row).
+        fill(view) writes the 32 C n bytes into a writable uint8 numpy
+        array: for a CUDA device the pinned staging buffer, which goes up
+        as it is (32 bytes a value) and is decoded by one launch."""
+        nbytes = 32 * C * n
+        cuda = self.device.type == "cuda"
+        host = (cuda_ops.staging(nbytes) if cuda
+                else torch.empty(nbytes, dtype=torch.uint8))
+        fill(host.numpy())
+        rows = cuda_ops.upload(host, self.device) if cuda else host
+        return cuda_ops.decode_le32(
+            self, rows.view(torch.int32).reshape(C, n, 8), mask)
+
+    def encode_le_bytes_dev(self, blob, n: int) -> torch.Tensor:
+        """n canonical 32-byte little-endian values (< p; a bytes-like
+        buffer or a contiguous numpy view) -> (16, n) Montgomery limbs,
+        decoded on the device (`decode_le_rows`)."""
+        src = np.frombuffer(blob, dtype=np.uint8)
+        if src.size != 32 * n:
+            raise ValueError(f"{src.size} bytes are not {n} 32-byte rows")
+
+        def fill(view):
+            view[:] = src
+        return self.decode_le_rows(fill, 1, n)[0][:, 0, :]
 
     def encode_u64_dev(self, cols: np.ndarray) -> torch.Tensor:
         """(C, n) uint64 canonical values -> (16, C, n) Montgomery limbs,

@@ -178,53 +178,40 @@ def save_witness(advice_cols: list, path: str) -> None:
         del mm
 
 
-def _below_p(quad) -> bool:
-    """Whether every (n, 4) little-endian u64 quad spells a value < p."""
-    p_words = [(P >> (64 * w)) & ((1 << 64) - 1) for w in range(4)]
-    lt = np.zeros(len(quad), dtype=bool)
-    eq = np.ones(len(quad), dtype=bool)
-    for w in (3, 2, 1, 0):
-        lt |= eq & (quad[:, w] < np.uint64(p_words[w]))
-        eq &= quad[:, w] == np.uint64(p_words[w])
-    return bool(lt.all())
-
-
 def load_witness(path: str, device="cuda"):
     """((16, C, n) Montgomery advice limbs on `device`, per-column max bit
-    length) from a strided witness file.  Column by column: each slab is
-    memory-mapped, its bit bound read from the canonical words, and it goes
-    up as 8 bytes a value when it fits 64 bits (32 otherwise), with the
-    canonical -> Montgomery product on the device.  A value >= p is
-    rejected (ValueError)."""
+    length) from a strided witness file.  The file's column slabs are read
+    into the staging buffer in one `readinto`, go up as they are (32 bytes
+    a value) and are decoded by one launch (`Field.decode_le_rows`); one
+    small read brings back each column's word maxima, which bound its
+    bits, and its >= p flag.  A value >= p is rejected (ValueError)."""
     device = require_device(device)
     F = fr(device)
+    size = os.path.getsize(path) - 4
     with open(path, "rb") as fh:
         C = int.from_bytes(fh.read(4), "little")
-    size = os.path.getsize(path) - 4
-    stride = size // C if C else 0
-    if C and (size % C or stride % 32):
-        raise ValueError("witness file size does not fit its column count")
-    n = stride // 32
-    cols, bits = [], []
-    for i in range(C):
-        mm = np.memmap(path, dtype=np.uint8, mode="r",
-                       offset=4 + i * stride, shape=(stride,))
-        quad = mm.view("<u8").reshape(n, 4)
-        hi_max = int(quad[:, 1:].max()) if n else 0
-        if hi_max == 0:
-            cols.append(F.encode_u64_dev(
-                np.ascontiguousarray(quad[:, 0])[None])[:, 0, :])
-            bits.append(max(int(quad[:, 0].max()).bit_length(), 1))
-        else:
-            if not _below_p(quad):
-                raise ValueError(f"witness column {i} holds a value >= p")
-            cols.append(F.encode_le_bytes_dev(mm.tobytes(), n))
+        if not C:
+            return torch.zeros((N_LIMBS, 0, 0), dtype=torch.int32,
+                               device=device), []
+        stride = size // C
+        if size % C or stride % 32:
+            raise ValueError("witness file size does not fit its column "
+                             "count")
+
+        def fill(view):
+            if fh.readinto(view) != view.size:
+                raise ValueError("witness file ends early")
+        adv, stats = F.decode_le_rows(fill, C, stride // 32)
+    bits = []
+    for i, (*maxima, ge) in enumerate(stats.cpu().numpy().view(np.uint64)):
+        if ge:
+            raise ValueError(f"witness column {i} holds a value >= p")
+        high = [w for w in (1, 2, 3) if maxima[w]]
+        if high:
             # the highest non-zero word w with max m bounds every value
             # below (m + 1) 2^(64 w), and one reaches m 2^(64 w)
-            w = max(w for w in (1, 2, 3) if int(quad[:, w].max()))
-            bits.append(64 * w + int(quad[:, w].max()).bit_length())
-        del mm
-    adv = (torch.stack(cols, dim=1) if C
-           else torch.zeros((N_LIMBS, 0, 0), dtype=torch.int32,
-                            device=device))
+            w = high[-1]
+            bits.append(64 * w + int(maxima[w]).bit_length())
+        else:
+            bits.append(max(int(maxima[0]).bit_length(), 1))
     return adv, bits

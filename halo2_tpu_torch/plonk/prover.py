@@ -451,8 +451,8 @@ def create_proof_multi(params, pk, circuits, instances_list,
     def col_to_dev(c):
         # columnar staging: u64 columns upload RAW (8 B/value), degraded
         # bigint columns upload 32-byte canonical rows (exported by the
-        # host codec); both convert canonical->Montgomery on the device
-        # (one mul by R^2)
+        # host codec, decoded by one kernel); both convert
+        # canonical->Montgomery on the device (one mul by R^2)
         if isinstance(c, np.ndarray):
             return F.encode_u64_dev(c[None])[:, 0, :]
         return F.encode_le_bytes_dev(native.longs_to_blob(c, P), n)

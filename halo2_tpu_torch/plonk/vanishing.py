@@ -33,22 +33,23 @@ class VanishingProver:
     def _random_coeffs(rng, domain):
         """(16, n) Montgomery limbs of n uniform-mod-p blinding coeffs.
 
-        Per coefficient: 64 random bytes, split as lo||hi and each half
-        masked to 253 bits (< p, so the device encoder's precondition
-        holds), combined on the device as lo + hi*2^253 mod p.  The sum is
-        uniform over [0, 2^506) before reduction, so the mod-p bias is
-        O(2^-253).  Cost: one rng.randbytes call, one device mul+add — no
-        host bigint loop."""
+        One draw of 64 n random bytes, as 2n 32-byte rows lo_0 .. lo_{n-1},
+        hi_0 .. hi_{n-1}, written into the staging buffer as drawn; the
+        rows go up as they are and one decode on the device masks each to
+        253 bits (< p) and makes its limbs; then lo + hi*2^253 mod p.  The
+        sum is uniform over [0, 2^506) before reduction, so the mod-p bias
+        is O(2^-253).  No host pass over the bytes but the draw."""
         F, n = domain.F, domain.n
         # chunked draw: one randbytes call of n*64 bytes overflows
         # getrandbits' C-int bit count at n = 2^22
         chunk = 1 << 24
-        blob = b"".join(rng.randbytes(min(chunk, n * 64 - off))
-                        for off in range(0, n * 64, chunk))
-        arr = np.frombuffer(blob, dtype=np.uint8)
-        arr = arr.reshape(2 * n, 32).copy()    # [lo_0..lo_{n-1}, hi_0..]
-        arr[:, 31] &= 0x1F                     # 253-bit halves: < p always
-        both = F.encode_le_bytes_dev(arr.tobytes(), 2 * n)
+
+        def draw(rows):
+            for off in range(0, n * 64, chunk):
+                size = min(chunk, n * 64 - off)
+                rows[off:off + size] = np.frombuffer(rng.randbytes(size),
+                                                     dtype=np.uint8)
+        both = F.decode_le_rows(draw, 1, 2 * n, mask=True)[0][:, 0, :]
         lo, hi = both[:, :n], both[:, n:]
         return F.add(lo, F.mul(hi, F.encode_scalar(pow(2, 253, P))))
 
